@@ -8,22 +8,36 @@ Phases, each printed as it runs; any failure exits nonzero:
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
    TF32 switched off for matmuls and cuDNN;
-2. build: every CUDA kernel of the port, from the sources in the checkout;
-3. kernel vs plain: the ``luong_attn`` kernel against its plain PyTorch
-   version at the decode shape, a training-like ragged shape, the
-   ``tests/kernel_harness.py`` shapes and an all-masked row, fp32 and bf16;
-4. serving: the full-width ``seq2seq-rnn`` (4 layers, h=1024, V=32000, bf16,
+2. build: every CUDA kernel of the port, from the sources in the checkout,
+   one ``nvcc`` per kernel, all started together;
+3. kernel vs plain, forward: the ``luong_attn`` kernel at the decode shape,
+   the training step's shape (2048 rows), a ragged shape, the
+   ``tests/kernel_harness.py`` shapes and an all-masked row; the ``lstm_cell`` kernel at the harness's shapes, a shape
+   of three ragged row tiles and the model's two full-width shapes, fp32 and
+   bf16, the model's mixed feed, and a cross-check against ``torch.lstm_cell``;
+4. kernel vs plain, backward: fp32 grads through each kernel's
+   ``autograd.Function`` against autograd through its plain version, at the
+   full-width training shapes (and the Luong forward output beside them);
+5. serving: the full-width ``seq2seq-rnn`` (4 layers, h=1024, V=32000, bf16,
    random weights from seed 0) through ``ContinuousEngine``: 8 requests on
-   4 slots, so slots recycle; the kernel must have launched once per decode
-   tick;
-5. kernel path vs plain path in the model, fp32: one ``decode_step`` and a
-   16-step ``greedy_decode``;
-6. timing with CUDA events at the decode shape (K=4, M=64, bf16).
+   4 slots, so slots recycle; ``luong_attn`` launches once per decode tick;
+6. kernel path vs plain path in the serving model, fp32: one ``decode_step``
+   and a 16-step ``greedy_decode``;
+7. training: the full-width model through ``Trainer`` (bf16 compute over fp32
+   masters, dropout 0.3, Adam, clip 5.0) on ``MTBatchIterator`` batches of 64,
+   8 steps; ``lstm_cell`` launches layers x (M + N) and ``luong_attn`` once
+   per step; then one step under ``torch.profiler``;
+8. kernel path vs plain path in one fp32 training step: loss and every grad
+   leaf;
+9. timing with CUDA events: ``luong_attn`` at the decode shape (and at the
+   training shape), ``lstm_cell`` at the training shape with the model's feed.
 
-Then one JSON line with the kernels' numbers, the ``nvidia-smi`` name and
-power-limit line, and, last, ``{"ok": true, "device": {...}}``.  Imports
-nothing of the JAX package.  Without CUDA, or without the repository
-beside it, it exits nonzero and prints no result.
+Then one JSON line with the kernels' numbers (``launches`` counts the
+launches of the serving run and the training run, each counted from 0 around
+its run), the ``nvidia-smi`` name and power-limit line, and, last,
+``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
+Without CUDA, or without the repository beside it, it exits nonzero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -41,15 +55,22 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.plan import ServePlan  # noqa: E402
+from repro_torch.core.plan import ExecutionPlan, ServePlan  # noqa: E402
+from repro_torch.data import MTBatchIterator, SyntheticMTTask  # noqa: E402
+from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
+from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.luong_attn import ops as luong_ops  # noqa: E402
 from repro_torch.kernels.luong_attn.ref import luong_attention_ref  # noqa: E402
 from repro_torch.models import seq2seq as s2s  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine  # noqa: E402
+from repro_torch.train import Trainer  # noqa: E402
+from repro_torch.train.trainer import batch_to_device, make_grad_fn  # noqa: E402
 
-# tolerances of tests/kernel_harness.py (TOL_ATTN)
+# tolerances of tests/kernel_harness.py
 TOL_ATTN = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+TOL_TIGHT = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # tests/kernel_harness.py's luong_attn shapes, copied (block sizes dropped)
 HARNESS_SHAPES = [
@@ -64,17 +85,35 @@ HARNESS_SHAPES = [
 # standard deviation near 100, the softmax is all but one-hot, and two fp32
 # evaluations of the same head (different summation orders) can differ by
 # more than TOL_ATTN's fp32 bound.
+TIMING_SHAPE = dict(B=4, N=1, M=64, h=1024)  # the serving phase's decode tick: 4 slots, max_len 64
+LUONG_TRAIN_SHAPE = dict(B=64, N=32, M=32, h=1024)  # the training step's head: 2048 rows
 PARITY_CASES = (
     [("decode", dict(B=8, N=1, M=64, h=1024), None, True),
+     ("train", LUONG_TRAIN_SHAPE, None, True),
      ("train-ragged", dict(B=4, N=48, M=40, h=1024), None, True)]
     + [(f"harness-{i}", s, None, False) for i, s in enumerate(HARNESS_SHAPES)]
     + [("all-masked-row", dict(B=3, N=2, M=5, h=16), 1, False)]
 )
-TIMING_SHAPE = dict(B=4, N=1, M=64, h=1024)  # the serving phase's decode tick: 4 slots, max_len 64
+# tests/kernel_harness.py's lstm_cell shapes, copied (block sizes dropped)
+LSTM_HARNESS_SHAPES = [
+    dict(B=8, In=16, H=32), dict(B=4, In=64, H=64), dict(B=16, In=24, H=128),
+    dict(B=1, In=8, H=16), dict(B=6, In=24, H=40), dict(B=7, In=13, H=24),
+]
+# the training step's cells: layer 0 (emb 512 in) and layers 1-3 (h 1024 in), batch 64
+LSTM_MODEL_SHAPES = [dict(B=64, In=512, H=1024), dict(B=64, In=1024, H=1024)]
+LSTM_ROW_TILES_SHAPE = dict(B=130, In=40, H=72)  # three of the kernel's 64-row tiles, the last ragged
+LSTM_TIMING_SHAPE = LSTM_MODEL_SHAPES[1]
+# fp32 comparisons of a whole training step (tests/test_plan.py's tolerance)
+STEP_TOL = dict(atol=1e-4, rtol=1e-3)
+STEP_LOSS_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (printed as a note only)
 LUONG_REPLACES = "src/repro/kernels/luong_attn/kernel.py:30"
 LUONG_SOURCE = "src/repro_torch/kernels/luong_attn/csrc/luong_attn.cu"
+LSTM_REPLACES = "src/repro/kernels/lstm_cell/kernel.py:27"
+LSTM_SOURCE = "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu"
+TRAIN_STEPS = 8
 
 
 def fail(msg: str):
@@ -154,6 +193,119 @@ def phase_parity() -> float:
     return worst
 
 
+def lstm_inputs(s: dict, dtypes, seed: int = 0, model_scales: bool = False):
+    """x, h, c, wx, wh, b on the card in ``dtypes``: the harness's scales
+    (N(0,1) inputs, weights 0.1 N(0,1)), or with ``model_scales`` the model's
+    (tanh-bounded x and h, the initializer's fan-in weights)."""
+    rng = np.random.default_rng(seed)
+    B, In, H = s["B"], s["In"], s["H"]
+    f = lambda shape, scale=1.0: torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()
+    x, h, c = f((B, In)), f((B, H)), f((B, H))
+    if model_scales:
+        x, h = torch.tanh(x), torch.tanh(h)
+        wx, wh, b = f((In, 4, H), In**-0.5), f((H, 4, H), H**-0.5), f((4, H), 0.1)
+    else:
+        wx, wh, b = f((In, 4, H), 0.1), f((H, 4, H), 0.1), f((4, H), 0.1)
+    return tuple(t.to(dt) for t, dt in zip((x, h, c, wx, wh, b), dtypes))
+
+
+MODEL_FEED = (torch.bfloat16,) + (torch.float32,) * 5  # x in the compute dtype; h, c and the masters fp32
+
+
+def phase_lstm_parity() -> float:
+    """The lstm_cell kernel against its plain version: the harness's shapes
+    and the model's two full-width shapes, all inputs fp32 or all bf16, then
+    the model's mixed feed (x bf16; h, c, weights fp32), whose products both
+    sides take in fp32 on the same values; then ``torch.lstm_cell`` at fp32."""
+    cases = [(f"harness-{i}", s, False) for i, s in enumerate(LSTM_HARNESS_SHAPES)]
+    cases += [("row-tiles", LSTM_ROW_TILES_SHAPE, False)]
+    cases += [(f"model-In{s['In']}", s, True) for s in LSTM_MODEL_SHAPES]
+    worst = 0.0
+    for label, s, model_scales in cases:
+        feeds = [(d, (dt,) * 6, d) for d, dt in DTYPES.items()] + [("mixed", MODEL_FEED, "float32")]
+        for fname, dts, tol_name in feeds:
+            args = lstm_inputs(s, dts, model_scales=model_scales)
+            got = lstm_ops.lstm_cell_fused(*args)
+            torch.cuda.synchronize()
+            want = lstm_cell_ref(*args)
+            err = 0.0
+            for g, w, like in zip(got, want, args[1:3]):
+                if g.dtype != like.dtype or g.shape != like.shape:
+                    fail(f"lstm_cell {label} {fname}: got {g.dtype} {tuple(g.shape)}")
+                if not torch.isfinite(g.float()).all():
+                    fail(f"lstm_cell {label} {fname}: non-finite output")
+                err = max(err, (g.float() - w.float()).abs().max().item())
+                if not torch.allclose(g.float(), w.float(), **TOL_TIGHT[tol_name]):
+                    fail(f"lstm_cell kernel disagrees with its plain version at {label} {fname}: {err:.3e}")
+            print(f"[parity] lstm_cell {label} {s} {fname}: max_abs_err {err:.3e} "
+                  f"(atol/rtol {TOL_TIGHT[tol_name]['atol']}) ok")
+            worst = max(worst, err)
+    # cross-check against PyTorch's own cell (gate order i, f, g, o; weight = W.reshape(in, 4H).T)
+    for s in LSTM_MODEL_SHAPES:
+        x, h, c, wx, wh, b = lstm_inputs(s, (torch.float32,) * 6, seed=1, model_scales=True)
+        In, H = s["In"], s["H"]
+        lh, lc = torch.lstm_cell(x, (h, c), wx.reshape(In, 4 * H).t().contiguous(),
+                                 wh.reshape(H, 4 * H).t().contiguous(), b.reshape(-1), torch.zeros_like(b.reshape(-1)))
+        kh, kc = lstm_ops.lstm_cell_fused(x, h, c, wx, wh, b)
+        err = max((kh - lh).abs().max().item(), (kc - lc).abs().max().item())
+        if not (torch.allclose(kh, lh, **TOL_TIGHT["float32"]) and torch.allclose(kc, lc, **TOL_TIGHT["float32"])):
+            fail(f"lstm_cell kernel disagrees with torch.lstm_cell at {s}: {err:.3e}")
+        print(f"[parity] lstm_cell {s} fp32 vs torch.lstm_cell: max_abs_err {err:.3e} (atol/rtol 1e-05) ok")
+    return worst
+
+
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def phase_backward():
+    """fp32 grads through each kernel's autograd.Function (the lstm_cell
+    adjoint; the Luong recompute) against autograd through the plain
+    version, at the full-width training shapes, within BWD_TOL.  The Luong
+    grads come from the same plain recompute on both sides, so the kernel's
+    forward output there is held against the plain one too (TOL_ATTN)."""
+    rng = np.random.default_rng(5)
+    for s in LSTM_MODEL_SHAPES:
+        args = lstm_inputs(s, (torch.float32,) * 6, seed=2, model_scales=True)
+        dh = torch.from_numpy(rng.normal(size=(s["B"], s["H"])).astype(np.float32)).cuda()
+        dc = torch.from_numpy(rng.normal(size=(s["B"], s["H"])).astype(np.float32)).cuda()
+        grads = []
+        for fn in (lstm_ops.lstm_cell_fused, lstm_cell_ref):
+            ins = [a.clone().requires_grad_() for a in args]
+            hn, cn = fn(*ins)
+            grads.append(torch.autograd.grad((hn * dh).sum() + (cn * dc).sum(), ins))
+        err = max((g - w).abs().max().item() for g, w in zip(*grads))
+        for name, g, w in zip(("x", "h", "c", "wx", "wh", "b"), *grads):
+            if not torch.allclose(g, w, **BWD_TOL):
+                fail(f"lstm_cell backward d{name} at {s}: kernel path vs plain max_abs_err "
+                     f"{(g - w).abs().max().item():.3e}")
+        print(f"[backward] lstm_cell {s} fp32: grads of x, h, c, wx, wh, b max_abs_err {err:.3e} "
+              f"(atol/rtol {BWD_TOL['atol']}) ok")
+    sh = LUONG_TRAIN_SHAPE
+    H, S, mask, wa, wc = luong_inputs(sh, torch.float32, seed=3, model_scales=True)
+    ct = torch.from_numpy(rng.normal(size=(sh["B"], sh["N"], sh["h"])).astype(np.float32)).cuda()
+    h = sh["h"]
+    grads, outs = [], []
+    for fused in (True, False):
+        ins = [t.clone().requires_grad_() for t in (H, S, wa, wc)]
+        if fused:
+            out = luong_ops.luong_attention_fused(ins[0], ins[1], mask, ins[2], ins[3])
+        else:
+            out = luong_attention_ref(ins[0], ins[1], mask, ins[2], ins[3][:h], ins[3][h:])
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad((out * ct).sum(), ins))
+    out_err = (outs[0] - outs[1]).abs().max().item()
+    if not torch.allclose(outs[0], outs[1], **TOL_ATTN["float32"]):
+        fail(f"luong_attn forward under autograd at {sh}: kernel vs plain max_abs_err {out_err:.3e}")
+    err = max((g - w).abs().max().item() for g, w in zip(*grads))
+    for name, g, w in zip(("H", "S", "w_alpha", "w_c"), *grads):
+        if not torch.allclose(g, w, **BWD_TOL):
+            fail(f"luong_attn backward d{name} at {sh}: kernel path vs plain max_abs_err "
+                 f"{(g - w).abs().max().item():.3e}")
+    print(f"[backward] luong_attn {sh} fp32: output max_abs_err {out_err:.3e} (atol/rtol "
+          f"{TOL_ATTN['float32']['atol']}); grads of H, S, w_alpha, w_c max_abs_err {err:.3e} "
+          f"(atol/rtol {BWD_TOL['atol']}) ok")
+
+
 def phase_serve(params, cfg):
     """The slice's main path: ContinuousEngine on the full-width model."""
     V = cfg.vocab_size
@@ -164,7 +316,7 @@ def phase_serve(params, cfg):
     prompts = [rng.integers(3, V, size=int(L)) for L in lens]
     engine.run(prompts[:2], 2)  # warm-up: first cuBLAS calls, allocator
     torch.cuda.synchronize()
-    luong_ops.luong_attention_fused.launches = 0
+    luong_ops.luong_attention_fused.launches = lstm_ops.lstm_cell_fused.launches = 0
     t0 = time.perf_counter()
     outs = engine.run(prompts, 24)
     torch.cuda.synchronize()
@@ -214,6 +366,97 @@ def phase_model_paths(params, cfg):
           f"16-step greedy_decode tokens equal on {B} sources")
 
 
+def train_config():
+    """The full-width model as users train it: bf16 compute over fp32 masters
+    and the config's dropout."""
+    return dataclasses.replace(get_config("seq2seq-rnn"), dtype="bfloat16")
+
+
+def phase_train(cfg):
+    """The slice's main path: Trainer on the full-width model, 8 steps of
+    batches of 64 (lengths 4-24, bucketed to 32).  Returns the two kernels'
+    launch counts over the 8 steps."""
+    plan = ExecutionPlan(stage_kernel="cuda", compute_dtype="bfloat16")
+    it = MTBatchIterator(SyntheticMTTask(vocab_size=cfg.vocab_size), batch_size=64, seed=0)
+    trainer = Trainer(cfg, adam(lr=1e-3), it, plan=plan, clip_norm=5.0, seed=0, device="cuda")
+    twin = MTBatchIterator(SyntheticMTTask(vocab_size=cfg.vocab_size), batch_size=64, seed=0)  # the same batches
+    lstm_launches = luong_launches = 0
+    for step in range(1, TRAIN_STEPS + 1):
+        lstm_ops.lstm_cell_fused.launches = luong_ops.luong_attention_fused.launches = 0
+        trainer.run(1, log_every=1, log=lambda line: None)
+        n_lstm, n_luong = lstm_ops.lstm_cell_fused.launches, luong_ops.luong_attention_fused.launches
+        h = trainer.history[-1]
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            fail(f"training step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
+        batch = next(twin)
+        M, N = batch["src"].shape[1], batch["tgt_in"].shape[1]
+        want = cfg.num_layers * (M + N)
+        if n_lstm != want or n_luong != 1:
+            fail(f"training step {step}: lstm_cell launches {n_lstm} != layers x (M + N) = {want}, "
+                 f"or luong_attn launches {n_luong} != 1")
+        print(f"[train] step {step}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} "
+              f"{h['tokens']:.0f} target tokens M={M} N={N} in {h['step_s'] * 1e3:.1f} ms; "
+              f"launches lstm_cell {n_lstm} luong_attn {n_luong}")
+        lstm_launches += n_lstm
+        luong_launches += n_luong
+    steady = trainer.history[2:]
+    step_ms = float(np.median([h["step_s"] for h in steady])) * 1e3
+    tok_s = sum(h["tokens"] for h in steady) / sum(h["step_s"] for h in steady)
+    print(f"[train] {cfg.name} bf16 over fp32 masters, Adam lr 1e-3, clip 5.0, dropout {cfg.dropout}, batch 64: "
+          f"median step {step_ms:.1f} ms over steps 3-{TRAIN_STEPS}, {tok_s:.0f} target tok/s; "
+          f"losses {[round(h['loss'], 4) for h in trainer.history]}")
+    if int(trainer.state.opt_state.step) != TRAIN_STEPS:
+        fail("the optimizer did not take every step")
+    profile_step(trainer)
+    return lstm_launches, luong_launches
+
+
+def profile_step(trainer):
+    """One more step under torch.profiler: the device ops that take the
+    step's time, and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(1, log_every=1, log=lambda line: None)
+        wall = time.perf_counter() - t0
+    # device-side events (kernels, copies, sets); operator rows repeat their kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        fail("torch.profiler recorded no device time for the training step")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"[profile] one training step: wall {wall * 1e3:.1f} ms, device busy {device_us / 1e3:.1f} ms "
+          f"({100 * device_us / 1e3 / (wall * 1e3):.1f}% of wall); top device ops by self time:")
+    for e in events[:15]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
+              f"{100 * e.self_device_time_total / device_us:5.1f}%  {e.key[:90]}")
+
+
+def phase_step_paths(cfg):
+    """One fp32 training step's loss and grads on the kernel path and on the
+    plain path: same weights, same batch, no dropout."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", dropout=0.0)
+    params = s2s.init_seq2seq(0, cfg32, device="cuda")
+    batch = batch_to_device(next(MTBatchIterator(SyntheticMTTask(vocab_size=cfg.vocab_size), 64, seed=1)), "cuda")
+    out = {sk: make_grad_fn(cfg32, ExecutionPlan(stage_kernel=sk))(params, batch) for sk in ("cuda", "torch")}
+    (lk, _, gk), (lp, _, gp) = out["cuda"], out["torch"]
+    dloss = abs(float(lk) - float(lp))
+    if dloss > STEP_LOSS_TOL:
+        fail(f"fp32 step loss: kernel path {float(lk)} vs plain path {float(lp)}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(gk), tree_leaves(gp))):
+        err = max(err, (a - b).abs().max().item())
+        if not torch.allclose(a, b, **STEP_TOL):
+            fail(f"fp32 step grad leaf {i} {tuple(a.shape)}: kernel path vs plain max_abs_err "
+                 f"{(a - b).abs().max().item():.3e}")
+    print(f"[train] fp32 step, kernel path vs plain path: loss {float(lk):.6f} vs {float(lp):.6f} "
+          f"(|diff| {dloss:.2e} <= {STEP_LOSS_TOL}); {len(tree_leaves(gk))} grad leaves max_abs_err {err:.3e} "
+          f"(atol {STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
+
+
 def _median_ms(fn, runs: int, flush: torch.Tensor, hide_host: bool) -> float:
     """Median of ``runs`` single calls timed with CUDA events, the L2 cache
     flushed before each (the decode tick streams 100+ MB of other weights
@@ -259,8 +502,24 @@ def phase_timing(launches: int, ticks: int, max_err: float) -> dict:
     print(f"[timing] luong_attn at K={B} M={M} h={h} bf16, median of {runs} runs, L2 flushed: "
           f"device time kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; with the host's enqueue "
           f"kernel {kernel_call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us "
-          f"({nbytes} B at 3.35 TB/s; {bound_by}), {launches / ticks:.2f} launches per decode tick; "
+          f"({nbytes} B at 3.35 TB/s; {bound_by}), {launches} launches in the serving and training runs "
+          f"({ticks} decode ticks + {TRAIN_STEPS} training steps); "
           "library_ms: none (no single PyTorch call computes eq. 1-4)")
+    # the same head at the training step's shape (2048 rows), device time only
+    t = LUONG_TRAIN_SHAPE
+    Ht, St, maskt, wat, wct = luong_inputs(t, torch.bfloat16, seed=4, model_scales=True)
+    maskt = maskt.to(torch.int32)
+    rows = t["B"] * t["N"]
+    train_k = _median_ms(lambda: luong_ops.luong_attention_fused(Ht, St, maskt, wat, wct), 20, flush, True)
+    train_p = _median_ms(lambda: luong_attention_ref(Ht, St, maskt, wat, wct[:h], wct[h:]), 20, flush, True)
+    tbytes = 2 * (2 * rows * h + t["B"] * t["M"] * h + 3 * h * h) + 4 * t["B"] * t["M"]
+    tflops = 2 * rows * h * h * 3 + 2 * 2 * rows * t["M"] * h
+    tbound = max(tbytes / HBM_BYTES_PER_S, tflops / BF16_FLOP_PER_S) * 1e3
+    scratch_mb = luong_ops._library().luong_attn_scratch_floats(t["B"], t["N"], t["M"], h) * 4 / 1e6
+    print(f"[timing] luong_attn at the training shape {t} bf16, median of 20 runs, L2 flushed: device time "
+          f"kernel {train_k:.4f} ms, plain {train_p:.4f} ms; bound {tbound * 1e3:.2f} us "
+          f"({'bytes' if tbytes / HBM_BYTES_PER_S >= tflops / BF16_FLOP_PER_S else 'operations'}); "
+          f"fp32 split-K scratch {scratch_mb:.1f} MB per call")
     return {
         "name": "luong_attn", "route": "cuda", "source": LUONG_SOURCE, "replaces": LUONG_REPLACES,
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
@@ -268,10 +527,56 @@ def phase_timing(launches: int, ticks: int, max_err: float) -> dict:
     }
 
 
+def phase_lstm_timing(launches: int, max_err: float) -> dict:
+    """The lstm_cell kernel at the training step's shape with the model's
+    feed; the plain version on the same inputs; ``torch.lstm_cell`` in bf16
+    (all inputs bf16, its weights in PyTorch's [4H, in] layout) as the
+    library yardstick."""
+    s = LSTM_TIMING_SHAPE
+    B, In, H = s["B"], s["In"], s["H"]
+    args = lstm_inputs(s, MODEL_FEED, seed=6, model_scales=True)
+    x, h, c, wx, wh, b = args
+    lib_args = (x.bfloat16(), (h.bfloat16(), c.bfloat16()), wx.reshape(In, 4 * H).t().contiguous().bfloat16(),
+                wh.reshape(H, 4 * H).t().contiguous().bfloat16(), b.reshape(-1).bfloat16(),
+                torch.zeros(4 * H, dtype=torch.bfloat16, device="cuda"))
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    runs = 40
+    kernel = lambda: lstm_ops.lstm_cell_fused(*args)
+    plain = lambda: lstm_cell_ref(*args)
+    library = lambda: torch.lstm_cell(*lib_args)
+    kernel_ms, plain_ms, library_ms = (_median_ms(f, runs, flush, True) for f in (kernel, plain, library))
+    kernel_call_ms, plain_call_ms = _median_ms(kernel, runs, flush, False), _median_ms(plain, runs, flush, False)
+    got, want = kernel(), plain()
+    max_err = max([max_err] + [(g - w).abs().max().item() for g, w in zip(got, want)])
+    # least work: each input read once (x bf16, the rest fp32), h' and c' written once in fp32;
+    # the gate products' flops at the tensor-core peak.  The kernel does them as fp32 FMA, so
+    # its time at the fp32 rate outside the tensor cores is printed beside the bound as a note.
+    nbytes = 2 * B * In + 4 * (2 * B * H + 4 * In * H + 4 * H * H + 4 * H) + 4 * 2 * B * H
+    flops = 2 * B * (In + H) * 4 * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[timing] lstm_cell at B={B} In={In} H={H}, x bf16, h/c/weights fp32, median of {runs} runs, "
+          f"L2 flushed: device time kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.lstm_cell "
+          f"(bf16) {library_ms:.4f} ms; with the host's enqueue kernel {kernel_call_ms:.4f} ms, plain "
+          f"{plain_call_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at 3.35 TB/s = "
+          f"{t_bytes * 1e6:.2f} us, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e6:.2f} us; note: the same "
+          f"flops as fp32 FMA at 67 TFLOP/s take {flops / FP32_FLOP_PER_S * 1e6:.2f} us); {launches} "
+          f"launches in {TRAIN_STEPS} training steps")
+    return {
+        "name": "lstm_cell", "route": "cuda", "source": LSTM_SOURCE, "replaces": LSTM_REPLACES,
+        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
 def main():
+    t_start = time.perf_counter()
     phase_environment()
     phase_build()
     max_err = phase_parity()
+    lstm_err = phase_lstm_parity()
+    phase_backward()
     cfg = dataclasses.replace(get_config("seq2seq-rnn"), dropout=0.0, dtype="bfloat16")
     t0 = time.perf_counter()
     params = s2s.init_seq2seq(0, cfg, device="cuda")
@@ -280,10 +585,16 @@ def main():
         fail(f"parameter count {n} != config's {cfg.param_count()}")
     print(f"[serve] {cfg.name}: {cfg.num_layers} layers, h={cfg.d_model}, emb={cfg.emb_size}, V={cfg.vocab_size}, "
           f"{n} parameters ({n * 4 / 1e6:.1f} MB fp32), initialized in {time.perf_counter() - t0:.2f}s")
-    launches, ticks = phase_serve(params, cfg)
+    serve_launches, ticks = phase_serve(params, cfg)
     phase_model_paths(params, cfg)
-    record = phase_timing(launches, ticks, max_err)
-    print(json.dumps({"kernels": [record]}))
+    del params
+    tcfg = train_config()
+    lstm_launches, train_luong_launches = phase_train(tcfg)
+    phase_step_paths(tcfg)
+    records = [phase_timing(serve_launches + train_luong_launches, ticks, max_err),
+               phase_lstm_timing(lstm_launches, lstm_err)]
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

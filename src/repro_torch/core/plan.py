@@ -1,5 +1,23 @@
-"""ServePlan: the subset of ``repro.core.plan.ServePlan`` that serves the
-seq2seq family under the ``encdec_memory`` cache policy.
+"""The port's execution plans: the meshless training half of
+``repro.core.plan.ExecutionPlan``, and the subset of
+``repro.core.plan.ServePlan`` that serves the seq2seq family under the
+``encdec_memory`` cache policy.
+
+:class:`ExecutionPlan` (training on one card):
+
+* ``micro_batches``: the global batch splits into this many microbatches,
+  whose grads the trainer accumulates in fp32 (``accum_steps``);
+* ``stage_kernel``: ``cuda`` (the fused LSTM cell and Luong head kernels)
+  or ``torch`` (the plain math);
+* ``compute_dtype``: the activations' dtype (None: the config's); the
+  weights, optimizer moments and grad sums stay fp32;
+* ``loss_scale_init`` / ``loss_scale_growth``: fp16's dynamic loss scale.
+
+The JAX plan's multi-device fields (strategy, mesh, overlap, pipeline,
+schedule, bucket size) are not ported: the hybrid layout is ROADMAP
+queue 4, and the constructor rejects them as unknown keywords.
+
+:class:`ServePlan`:
 
 * ``cache_policy`` is ``encdec_memory``: the encoder states S are the
   cached memory; decode is one decoder-LSTM step plus the Luong head.
@@ -19,6 +37,7 @@ The paged, mesh, speculative and LM fields of the JAX plan are not ported:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 from repro_torch.kernels import fit_block
 
@@ -29,6 +48,60 @@ NOT_PORTED = frozenset({
     "strategy", "mesh", "window", "page_size", "num_pages", "share_prefixes",
     "draft_arch", "draft_len", "acceptance",
 })
+
+
+# training compute precisions; params, optimizer moments and grad sums stay fp32
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
+
+
+@dataclass(frozen=True)
+class ExecutionPlan:
+    micro_batches: int = 1
+    stage_kernel: str = "cuda"
+    compute_dtype: Optional[str] = None
+    loss_scale_init: float = 2.0**15
+    loss_scale_growth: int = 2000
+
+    def __post_init__(self):
+        if self.micro_batches < 1:
+            raise ValueError(f"micro_batches must be >= 1, got {self.micro_batches}")
+        if self.stage_kernel not in STAGE_KERNELS:
+            raise ValueError(f"stage_kernel must be one of {STAGE_KERNELS}, got {self.stage_kernel!r}")
+        if self.compute_dtype is not None and self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {self.compute_dtype!r}")
+        if not self.loss_scale_init > 0:
+            raise ValueError(f"loss_scale_init must be > 0, got {self.loss_scale_init}")
+        if self.loss_scale_growth < 1:
+            raise ValueError(f"loss_scale_growth must be >= 1, got {self.loss_scale_growth}")
+
+    @property
+    def accum_steps(self) -> int:
+        """Microbatches the trainer accumulates over (no pipeline here)."""
+        return self.micro_batches
+
+    def resolve_compute_dtype(self, cfg=None) -> str:
+        """The dtype the loss fn computes in: the plan's ``compute_dtype``
+        when set, else the model config's ``dtype`` (fp32 when neither)."""
+        if self.compute_dtype is not None:
+            return self.compute_dtype
+        return getattr(cfg, "dtype", "float32") if cfg is not None else "float32"
+
+    def fp16(self, cfg=None) -> bool:
+        """Whether this plan trains in float16, the one compute dtype that
+        needs dynamic loss scaling (bf16 shares fp32's exponent range)."""
+        return self.resolve_compute_dtype(cfg) == "float16"
+
+    def validate_batch(self, global_batch: int) -> None:
+        if global_batch % self.micro_batches:
+            raise ValueError(f"global batch {global_batch} not divisible by micro_batches={self.micro_batches}")
+
+    def split_micro(self, batch: dict) -> list:
+        """{name: [B, ...]} -> ``accum_steps`` dicts of [B/k, ...] slices
+        (views; row order kept)."""
+        k = self.accum_steps
+        self.validate_batch(next(iter(batch.values())).shape[0])
+        parts = {name: v.chunk(k, dim=0) for name, v in batch.items()}
+        return [{name: parts[name][i] for name in batch} for i in range(k)]
 
 
 @dataclass(frozen=True)

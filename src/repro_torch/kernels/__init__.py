@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # library name -> sources, relative to this directory
 LIBRARIES = {
     "luong_attn": ("luong_attn/csrc/luong_attn.cu",),
+    "lstm_cell": ("lstm_cell/csrc/lstm_cell.cu",),
 }
 
 _loaded: dict = {}

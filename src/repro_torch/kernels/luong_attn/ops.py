@@ -1,13 +1,15 @@
 """Public wrapper of the fused Luong attention head (paper eq. 1-4).
 
-``luong_attention_fused`` launches the hand-written CUDA kernel
-(``csrc/luong_attn.cu``) for CUDA tensors and runs the plain version
-(``ref.py``) for CPU tensors; any other input raises.  There is no fallback
-from the kernel: a CUDA input that the kernel does not take raises.
+``luong_attention_fused`` is a ``torch.autograd.Function``.  Its forward
+launches the hand-written CUDA kernel (``csrc/luong_attn.cu``) for CUDA
+tensors and runs the plain version (``ref.py``) for CPU tensors; any other
+input raises.  There is no fallback from the kernel: a CUDA input that the
+kernel does not take raises.
 
-Inference only for now: an input that requires grad raises (the recompute
-backward of ``repro/kernels/luong_attn/ops.py`` arrives with the training
-slice).  ``luong_attention_fused.launches`` counts kernel launches.
+Its backward is the recompute of ``repro/kernels/luong_attn/ops.py``: the
+head is rebuilt with the plain version from the saved inputs (no activation
+stash) and its vector-Jacobian product taken; the mask gets no gradient.
+``luong_attention_fused.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -87,17 +89,38 @@ def _launch(H, S, src_mask, w_alpha, w_c):
     return out
 
 
+def _plain(H, S, src_mask, w_alpha, w_c):
+    h = H.shape[-1]
+    return luong_attention_ref(H, S, src_mask, w_alpha, w_c[:h], w_c[h:])
+
+
+class _LuongHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, H, S, src_mask, w_alpha, w_c):
+        ctx.save_for_backward(H, S, src_mask, w_alpha, w_c)
+        if H.device.type == "cpu":
+            return _plain(H, S, src_mask, w_alpha, w_c)
+        return _launch(H, S, src_mask, w_alpha, w_c)
+
+    @staticmethod
+    def backward(ctx, dHc):
+        H, S, src_mask, w_alpha, w_c = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (H, S, w_alpha, w_c)]
+            out = _plain(ins[0], ins[1], src_mask, ins[2], ins[3])
+            dH, dS, dwa, dwc = torch.autograd.grad(out, ins, dHc)
+        need = ctx.needs_input_grad
+        return (dH if need[0] else None, dS if need[1] else None, None, dwa if need[3] else None,
+                dwc if need[4] else None)
+
+
 def luong_attention_fused(H, S, src_mask, w_alpha, w_c):
     """H [B,N,h], S [B,M,h], src_mask [B,M], w_alpha [h,h], w_c [2h,h]
-    (the paper's layout: tanh(W_c [H; C])) -> Hc [B,N,h] in H's dtype."""
-    if any(t.requires_grad for t in (H, S, w_alpha, w_c)):
-        raise NotImplementedError("luong_attention_fused is inference-only: its backward is not ported yet")
-    h = H.shape[-1]
-    if H.device.type == "cpu":
-        return luong_attention_ref(H, S, src_mask, w_alpha, w_c[:h], w_c[h:])
-    if H.device.type != "cuda":
+    (the paper's layout: tanh(W_c [H; C])) -> Hc [B,N,h] in H's dtype.
+    Differentiable through the recompute backward."""
+    if H.device.type not in ("cpu", "cuda"):
         raise ValueError(f"luong_attention_fused runs on CUDA (kernel) or CPU (plain version), not {H.device}")
-    return _launch(H, S, src_mask, w_alpha, w_c)
+    return _LuongHead.apply(H, S, src_mask, w_alpha, w_c)
 
 
 luong_attention_fused.launches = 0

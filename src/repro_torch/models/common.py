@@ -96,3 +96,30 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+# ---------------------------------------------------------------------------
+# losses / metrics (repro/models/common.py)
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
+    """Token-level cross-entropy in fp32 with an optional mask; returns
+    (mean loss, denom)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean(), torch.tensor(float(nll.numel()), device=nll.device)
+    mask = mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / denom, denom
+
+
+def token_accuracy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
+    hit = (torch.argmax(logits, dim=-1) == labels.long()).float()
+    if mask is None:
+        return hit.mean()
+    mask = mask.float()
+    return (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,4 +1,4 @@
-"""The paper's model: Luong-attention Seq2Seq stacked-LSTM MT, serving path
+"""The paper's model: Luong-attention Seq2Seq stacked-LSTM MT
 (Ono et al. 2019, Figures 1 & 3; port of ``repro/models/seq2seq.py``).
 
 The attention-softmax head computes, for decoder states H against the
@@ -9,6 +9,12 @@ encoder states S::
     Hc    = tanh(W_c [H; C])            (eq. 4)
     P     = softmax(F_c Hc)             (eq. 5)
 
+Training has two forwards.  ``forward_no_input_feeding`` (HybridNMT, Fig. 3)
+runs the backbone phase (all encoder states S and all decoder states H under
+teacher forcing), then the head over all steps at once.  ``forward_input_feeding``
+(baseline / HybridNMTIF, Fig. 1) feeds Hc_{t-1} into the first decoder
+layer, so the decoder is one serial loop with the head inside it.
+
 Serving keeps the encoder states S of each request as its cached
 "memory" (``encdec_memory``): ``encode_extend`` is the chunked prefill,
 ``decode_step`` one decoder-LSTM step plus the head.  Every leaf of a
@@ -18,15 +24,29 @@ in one call where the JAX engine ``vmap``s over slots.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lstm
-from repro_torch.models.common import Initializer, resolve_device, resolve_dtype, tree_map
+from repro_torch.models.common import (
+    Initializer,
+    resolve_device,
+    resolve_dtype,
+    softmax_cross_entropy,
+    tree_map,
+)
 
 STAGE_KERNELS = ("torch", "cuda")
+
+
+class Seq2SeqBatch(NamedTuple):
+    src: torch.Tensor  # [B, M] int
+    tgt_in: torch.Tensor  # [B, N] int (BOS-shifted)
+    tgt_out: torch.Tensor  # [B, N] int (labels)
+    src_mask: torch.Tensor  # [B, M] bool
+    tgt_mask: torch.Tensor  # [B, N] bool
 
 
 def init_seq2seq(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
@@ -88,6 +108,88 @@ def attention_softmax_head(head: dict, S, H, src_mask, *, stage_kernel: str = "t
         raise ValueError(f"stage_kernel must be one of {STAGE_KERNELS}, got {stage_kernel!r}")
     logits = torch.matmul(Hc.float(), head["f_c"].float())  # eq. 5
     return Hc, logits
+
+
+# ---------------------------------------------------------------------------
+# training forwards
+# ---------------------------------------------------------------------------
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Rows of the fp32 table in the compute dtype (gathered, then cast:
+    the same values as casting the table first)."""
+    return table[tokens.long()].to(dt)
+
+
+def forward_no_input_feeding(
+    params: dict,
+    cfg: ModelConfig,
+    batch: Seq2SeqBatch,
+    *,
+    generator: Optional[torch.Generator] = None,
+    stage_kernel: str = "torch",
+):
+    """HybridNMT forward -> (mean loss, {"logits", "denom"}).
+    ``stage_kernel`` selects both the LSTM cells and the head's eq. 1-4
+    (``"cuda"``: the fused kernels).  ``generator`` drives inter-layer
+    dropout (none without it)."""
+    dt = resolve_dtype(cfg.dtype)
+
+    def run(ps, xs):
+        return lstm.run_stacked_lstm(ps, xs, dropout_p=cfg.dropout, generator=generator,
+                                     stage_kernel=stage_kernel)[0]
+
+    src_e = _embed(params["src_emb"]["table"], batch.src, dt)
+    tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
+    # ---- phase 1: the backbone (all hidden states) ----------------------
+    S = run(params["encoder"], src_e)  # [B, M, h]
+    H = run(params["decoder"], tgt_e)  # [B, N, h]
+    # ---- phase 2: the attention-softmax head ----------------------------
+    _, logits = attention_softmax_head(params["head"], S, H, batch.src_mask, stage_kernel=stage_kernel)
+    loss, denom = softmax_cross_entropy(logits, batch.tgt_out, batch.tgt_mask)
+    return loss, {"logits": logits, "denom": denom}
+
+
+def forward_input_feeding(
+    params: dict,
+    cfg: ModelConfig,
+    batch: Seq2SeqBatch,
+    *,
+    generator: Optional[torch.Generator] = None,
+    stage_kernel: str = "torch",
+):
+    """Baseline / HybridNMTIF forward: Hc_{t-1} joins the first decoder
+    layer's input (Fig. 1), so the decoder is one serial loop.  As in the
+    JAX package, the cells are the plain ones and dropout applies to the
+    encoder only; ``stage_kernel`` selects the head."""
+    dt = resolve_dtype(cfg.dtype)
+    h = cfg.d_model
+    B, N = batch.tgt_in.shape
+    src_e = _embed(params["src_emb"]["table"], batch.src, dt)
+    tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
+    S = lstm.run_stacked_lstm(params["encoder"], src_e, dropout_p=cfg.dropout, generator=generator)[0]
+    head = params["head"]
+    dec = [lstm.cast_cell(p, dt) for p in params["decoder"]]
+    states = [lstm.init_lstm_state(B, h, src_e.device) for _ in dec]
+    hc = torch.zeros((B, h), dtype=dt, device=src_e.device)
+    hs = []
+    for t in range(N):
+        hcur = torch.cat([tgt_e[:, t], hc.to(dt)], dim=-1)
+        for li, pc in enumerate(dec):
+            states[li], hcur = lstm.cell_step(pc, hcur, states[li])
+        Hc, _ = attention_softmax_head(head, S, hcur[:, None, :], batch.src_mask, stage_kernel=stage_kernel)
+        hc = Hc[:, 0]
+        hs.append(hcur)
+    H = torch.stack(hs, dim=1)  # [B, N, h]
+    _, logits = attention_softmax_head(head, S, H, batch.src_mask, stage_kernel=stage_kernel)
+    loss, denom = softmax_cross_entropy(logits, batch.tgt_out, batch.tgt_mask)
+    return loss, {"logits": logits, "denom": denom}
+
+
+def forward(params: dict, cfg: ModelConfig, batch: Seq2SeqBatch, **kw):
+    if cfg.input_feeding:
+        return forward_input_feeding(params, cfg, batch, **kw)
+    return forward_no_input_feeding(params, cfg, batch, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -60,7 +60,7 @@ def test_port_imports_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15  # every module of the package was imported
+    assert int(res.stdout.split()[-1]) >= 31  # every module of the package was imported, the training slice's too
 
 
 def test_entry_points_default_to_cuda():
@@ -74,9 +74,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bridge.params_from_jax({"w": np.zeros(2, np.float32)})
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adam
+    from repro_torch.train import Trainer
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, adam(), iter(()))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--smoke", "--steps", "1"])
 
 
 def test_luong_wrapper_cpu_path_is_plain_version():

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from kernel_harness import REGISTRY, TOL_ATTN  # noqa: E402
 
@@ -116,8 +117,45 @@ def test_all_masked_row_is_uniform_not_nan(dt):
     _close(got[1], uniform.numpy(), dt, "uniform alpha")
 
 
-def test_wrapper_is_inference_only():
-    x = _torch(_inputs(REGISTRY["luong_attn"].shapes[0]), "float32")
-    with pytest.raises(NotImplementedError, match="inference-only"):
-        ops.luong_attention_fused(x["H"].requires_grad_(), x["S"], x["mask"], x["wa"], x["wc"])
+LUONG_GRAD_NAMES = ("H", "S", "w_alpha", "w_c")
 
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("shape", LUONG_SHAPES, ids=_sid)
+def test_luong_fused_grads_match_jax_custom_vjp(shape, dt):
+    """The recompute backward of the port's Function (CPU: plain forward,
+    autograd of the plain version) against ``jax.grad`` through JAX's
+    ``luong_attention_fused(interpret=True)`` and its custom-vjp, for H, S,
+    w_alpha and w_c; the mask gets no gradient.  Tolerance: TOL_ATTN, with
+    its absolute part scaled by the leaf's largest magnitude: each grad is
+    a sum over B*N*M products and reaches ~80 at these shapes, where fp32
+    reassociation alone moves it by a few 1e-6 of that magnitude."""
+    x = _inputs(shape)
+    rng = np.random.default_rng(9)
+    ct = rng.normal(size=(shape["B"], shape["N"], shape["h"])).astype(np.float32)
+    j, t = _jax(x, dt), _torch(x, dt)
+    ins = [t[k].requires_grad_() for k in ("H", "S", "wa", "wc")]
+    out = ops.luong_attention_fused(ins[0], ins[1], t["mask"], ins[2], ins[3])
+    grads = torch.autograd.grad((out.float() * torch.from_numpy(ct)).sum(), ins)
+
+    def jloss(H, S, wa, wc):
+        o = jax_fused(H, S, j["mask"], wa, wc, block_n=shape["bn"], interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * ct)
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2, 3))(j["H"], j["S"], j["wa"], j["wc"])
+    for name, g, jg, a in zip(LUONG_GRAD_NAMES, grads, jgrads, ins):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        want = np.asarray(jg, np.float32)
+        tol = dict(TOL_ATTN[dt], atol=TOL_ATTN[dt]["atol"] * max(1.0, float(np.abs(want).max())))
+        np.testing.assert_allclose(g.float().numpy(), want, **tol, err_msg=f"d{name} {shape} {dt}")
+
+
+def test_luong_fused_grads_flow_only_where_asked():
+    """Inputs that do not require grad get none; a mask never does."""
+    x = _torch(_inputs(REGISTRY["luong_attn"].shapes[0]), "float32")
+    H = x["H"].requires_grad_()
+    out = ops.luong_attention_fused(H, x["S"], x["mask"], x["wa"], x["wc"])
+    assert out.requires_grad
+    (gH,) = torch.autograd.grad(out.sum(), [H])
+    assert gH.shape == H.shape and torch.isfinite(gH).all()
+    assert x["S"].grad is None and not x["mask"].requires_grad
