@@ -30,17 +30,44 @@ Phases, each printed as it runs; any failure exits nonzero:
 8. kernel path vs plain path in one fp32 training step: loss and every grad
    leaf;
 9. timing with CUDA events: ``luong_attn`` at the decode shape (and at the
-   training shape), ``lstm_cell`` at the training shape with the model's feed.
+   training shape), ``lstm_cell`` at the training shape with the model's feed;
+10. ``flash_attn`` kernel vs plain, fp32 (the FMA kernel) and bf16 (the
+    tensor-core kernel; the FMA kernel at D=8): the ``tests/kernel_harness.py``
+    shapes, the full-width prefill's per-layer call (B=4, S=2048, 16 q heads
+    on 8 kv heads, D=128, window 4096) and a window-binding one (B=1,
+    S=8192).  bf16 is also held against the plain version's fp32 output on
+    the same bf16 inputs (FLASH_BF16_TOL and a relative L2 bound), and a
+    control with the window one 64-key tile short must miss that bound;
+11. LM serving: the full-width ``qwen3-1.7b`` (28 layers, d=2048, V=151936,
+    bf16 over fp32 masters, random weights from seed 0) through
+    ``ServeEngine.generate``: (a) 4 prompts of 2048 tokens, 32 new tokens;
+    (b) 1 prompt of 8192 tokens (past the 4096 window: the rolling cache and
+    the window's tile pruning run), 16 new tokens; exactly 28 ``flash_attn``
+    launches per generate, i.e. per prefill and none per decode step (greedy
+    decode replays a CUDA graph of the step); then one prefill and 8 eager
+    decode steps under ``torch.profiler``;
+12. kernel path vs plain path in the LM, fp32: one prefill of 2 prompts of
+    512 tokens (logits) and 8 greedy tokens through ``ServeEngine``, graphed
+    and eager decode alike;
+13. kernel path vs plain path in the LM, bf16, at (a)'s and (b)'s prompts:
+    each of the 28 kernel calls of the prefill against the plain version's
+    fp32 output on its own inputs, and the last-position logits against the
+    plain path's (relative L2); at (b) a control with the kernel's window one
+    tile short must miss the logits bound;
+14. timing with CUDA events: ``flash_attn`` at (a)'s per-layer call against
+    its plain version and ``scaled_dot_product_attention`` (the library
+    yardstick, used nowhere in the port), and at (b)'s.
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
-launches of the serving run and the training run, each counted from 0 around
-its run), the ``nvidia-smi`` name and power-limit line, and, last,
+launches of the serving runs and the training run, each counted from 0
+around its run), the ``nvidia-smi`` name and power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
 Without CUDA, or without the repository beside it, it exits nonzero and
 prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -57,14 +84,17 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.plan import ExecutionPlan, ServePlan  # noqa: E402
 from repro_torch.data import MTBatchIterator, SyntheticMTTask  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.luong_attn import ops as luong_ops  # noqa: E402
 from repro_torch.kernels.luong_attn.ref import luong_attention_ref  # noqa: E402
 from repro_torch.models import seq2seq as s2s  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
-from repro_torch.serve.engine import ContinuousEngine  # noqa: E402
+from repro_torch.serve.engine import ContinuousEngine, ServeEngine, pad_cache, prefill_fn  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
 from repro_torch.train.trainer import batch_to_device, make_grad_fn  # noqa: E402
 
@@ -114,6 +144,30 @@ LUONG_SOURCE = "src/repro_torch/kernels/luong_attn/csrc/luong_attn.cu"
 LSTM_REPLACES = "src/repro/kernels/lstm_cell/kernel.py:27"
 LSTM_SOURCE = "src/repro_torch/kernels/lstm_cell/csrc/lstm_cell.cu"
 TRAIN_STEPS = 8
+FLASH_REPLACES = "src/repro/kernels/flash_attn/kernel.py:31"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu"
+# tests/kernel_harness.py's flash_attn shapes (blocks dropped), then the LM
+# prefill's per-layer calls: (a) 4 x 2048 tokens, (b) 1 x 8192 past the window
+FLASH_HARNESS_SHAPES = [
+    dict(B=2, S=128, KV=2, G=2, D=32, causal=True, window=None),
+    dict(B=1, S=256, KV=1, G=4, D=64, causal=True, window=64),
+    dict(B=2, S=64, KV=4, G=1, D=16, causal=False, window=None),
+    dict(B=1, S=128, KV=2, G=1, D=128, causal=True, window=32),
+    dict(B=1, S=96, KV=1, G=2, D=32, causal=True, window=None),
+    dict(B=1, S=32, KV=1, G=1, D=8, causal=True, window=1),
+]
+FLASH_PREFILL_SHAPE = dict(B=4, S=2048, KV=8, G=2, D=128, causal=True, window=4096)
+FLASH_LONG_SHAPE = dict(B=1, S=8192, KV=8, G=2, D=128, causal=True, window=4096)
+LM_SERVE_RUNS = [("a", 4, 2048, 32), ("b", 1, 8192, 16)]  # (label, prompts, prompt tokens, new tokens)
+LM_PATHS_TOL = dict(atol=1e-3, rtol=1e-3)  # fp32 logits after 28 layers, two summation orders of attention
+# bf16 flash_attn against the plain version's fp32 output on the same bf16
+# inputs: only the kernel's own rounding is left (P and the output in bf16),
+# where TOL_ATTN's bf16 bound is as large as a typical output at S=2048
+FLASH_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+FLASH_BF16_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain||
+FLASH_TILE = 64  # keys per staged tile of the tensor-core kernel (kMmaBKV)
+# bf16 last-position logits, kernel path vs plain path after 28 layers
+LM_BF16_LOGITS_REL_L2 = 5e-2
 
 
 def fail(msg: str):
@@ -414,25 +468,7 @@ def phase_train(cfg):
 def profile_step(trainer):
     """One more step under torch.profiler: the device ops that take the
     step's time, and the device's busy share of the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.run(1, log_every=1, log=lambda line: None)
-        wall = time.perf_counter() - t0
-    # device-side events (kernels, copies, sets); operator rows repeat their kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    device_us = sum(e.self_device_time_total for e in events)
-    if device_us <= 0:
-        fail("torch.profiler recorded no device time for the training step")
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    print(f"[profile] one training step: wall {wall * 1e3:.1f} ms, device busy {device_us / 1e3:.1f} ms "
-          f"({100 * device_us / 1e3 / (wall * 1e3):.1f}% of wall); top device ops by self time:")
-    for e in events[:15]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
-              f"{100 * e.self_device_time_total / device_us:5.1f}%  {e.key[:90]}")
+    _profile(lambda: trainer.run(1, log_every=1, log=lambda line: None), "one training step", top=15)
 
 
 def phase_step_paths(cfg):
@@ -570,6 +606,299 @@ def phase_lstm_timing(launches: int, max_err: float) -> dict:
     }
 
 
+def flash_inputs(s: dict, dtype: torch.dtype, seed: int = 0):
+    """q [B*KV*G, S, D], k/v [B*KV, S, D] on the card, N(0,1) (the harness's
+    scales)."""
+    rng = np.random.default_rng(seed)
+    B, S, KV, G, D = s["B"], s["S"], s["KV"], s["G"], s["D"]
+    f = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)  # noqa: E731
+    return f((B * KV * G, S, D)), f((B * KV, S, D)), f((B * KV, S, D))
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _flash_bf16_check(got, q, k, v, kw, label: str) -> tuple:
+    """A bf16 kernel output against the plain version's fp32 output on the
+    same bf16 inputs: FLASH_BF16_TOL elementwise and FLASH_BF16_REL_L2.
+    Returns (max_abs_err, relative L2 error)."""
+    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    err, rel = (got.float() - want).abs().max().item(), _rel_l2(got, want)
+    if not torch.allclose(got.float(), want, **FLASH_BF16_TOL) or rel > FLASH_BF16_REL_L2:
+        fail(f"flash_attn {label} bf16 vs the plain version's fp32 output: max_abs_err {err:.3e} "
+             f"(atol/rtol {FLASH_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {FLASH_BF16_REL_L2})")
+    return err, rel
+
+
+def phase_flash_parity() -> float:
+    """Returns the worst max_abs_err: fp32 against the plain version, bf16
+    against the plain version's fp32 output."""
+    worst = 0.0
+    cases = [(f"harness-{i}", s) for i, s in enumerate(FLASH_HARNESS_SHAPES)]
+    cases += [("prefill-a", FLASH_PREFILL_SHAPE), ("prefill-b", FLASH_LONG_SHAPE)]
+    for label, s in cases:
+        for dname, dtype in DTYPES.items():
+            q, k, v = flash_inputs(s, dtype)
+            kw = dict(causal=s["causal"], window=s["window"], group=s["G"])
+            got = flash_ops.flash_attention_fused(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_plain(q, k, v, **kw)
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"flash_attn {label} {dname}: got {got.dtype} {tuple(got.shape)}")
+            if not torch.isfinite(got.float()).all():
+                fail(f"flash_attn {label} {dname}: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), **TOL_ATTN[dname]):
+                fail(f"flash_attn kernel disagrees with its plain version at {label} {dname}: {err:.3e}")
+            line = f"[parity] flash_attn {label} {s} {dname}: max_abs_err {err:.3e} (atol/rtol {TOL_ATTN[dname]['atol']})"
+            if dname == "bfloat16":
+                err, rel = _flash_bf16_check(got, q, k, v, kw, label)
+                line += (f"; vs the plain version's fp32 output max_abs_err {err:.3e} (atol/rtol "
+                         f"{FLASH_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {FLASH_BF16_REL_L2})")
+            print(line + " ok")
+            worst = max(worst, err)
+    # control: the window one tile short drops each late row's oldest 64 keys; the bound must see it
+    s = FLASH_LONG_SHAPE
+    q, k, v = flash_inputs(s, torch.bfloat16)
+    kw = dict(causal=s["causal"], window=s["window"], group=s["G"])
+    short = flash_ops.flash_attention_fused(q, k, v, **dict(kw, window=s["window"] - FLASH_TILE))
+    want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    rel = _rel_l2(short, want)
+    caught_tol = not torch.allclose(short.float(), want, **FLASH_BF16_TOL)
+    caught_attn = not torch.allclose(short.float(), want, **TOL_ATTN["bfloat16"])
+    if rel <= FLASH_BF16_REL_L2:
+        fail(f"control: a window {FLASH_TILE} keys short passes the bf16 bound (relative L2 {rel:.3e})")
+    print(f"[parity] flash_attn control at prefill-b, window {s['window'] - FLASH_TILE} against {s['window']}: "
+          f"relative L2 {rel:.3e} > {FLASH_BF16_REL_L2} (caught); max_abs_err "
+          f"{(short.float() - want).abs().max().item():.3e}, caught by FLASH_BF16_TOL: {caught_tol}, "
+          f"by TOL_ATTN's bf16 bound: {caught_attn}")
+    return worst
+
+
+def lm_plan(cfg, stage_kernel: str = "cuda"):
+    """Static batches of up to 4 prompts; max_len = the 4096 window, so a
+    prompt past the window decodes on the rolling buffer."""
+    return ServePlan.for_config(cfg, max_slots=4, max_len=cfg.sliding_window, admission="static",
+                                stage_kernel=stage_kernel)
+
+
+def _profile(fn, label: str, top: int = 12):
+    """Device time by op of one call of ``fn`` under torch.profiler, and the
+    device's busy share of its wall time (the profiler's overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events (kernels, copies, sets); operator rows repeat their kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        fail(f"torch.profiler recorded no device time for {label}")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"[profile] {label}: wall {wall * 1e3:.1f} ms (profiler on), device busy {device_us / 1e3:.1f} ms "
+          f"({100 * device_us / 1e3 / (wall * 1e3):.1f}% of wall); top device ops by self time:")
+    for e in events[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
+              f"{100 * e.self_device_time_total / device_us:5.1f}%  {e.key[:90]}")
+
+
+def phase_lm_serve(params, cfg) -> int:
+    """The slice's main path: ServeEngine.generate on the full-width LM.
+    Returns the flash_attn launches of the two serving runs."""
+    V, L = cfg.vocab_size, cfg.num_layers
+    plan = lm_plan(cfg)
+    engine = ServeEngine(cfg, params, plan=plan, device="cuda")
+    rng = np.random.default_rng(0)
+    engine.generate(rng.integers(3, V, size=(2, 256)), 2)  # warm-up: first cuBLAS calls, allocator
+    torch.cuda.synchronize()
+    total = 0
+    for label, B, S, new in LM_SERVE_RUNS:
+        prompts = rng.integers(3, V, size=(B, S))
+        luong_ops.luong_attention_fused.launches = lstm_ops.lstm_cell_fused.launches = 0
+        flash_ops.flash_attention_fused.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, new)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = flash_ops.flash_attention_fused.launches
+        if n != L:
+            fail(f"serve ({label}): flash_attn launches {n} != {L} (one per layer in the prefill, none per decode step)")
+        if tuple(out.shape) != (B, new) or out.min().item() < 0 or out.max().item() >= V:
+            fail(f"serve ({label}): bad output {tuple(out.shape)} in [{out.min().item()}, {out.max().item()}]")
+        total += n
+        decode_tok_s = B * (new - 1) / engine.decode_s
+        print(f"[lm-serve] ({label}) [{cfg.name} | {plan.cache_policy} {plan.window} | static] {B} x {S} prompt "
+              f"tokens, {new} new tokens each, in {dt:.3f}s: prefill {engine.prefill_s * 1e3:.1f} ms "
+              f"({B * S / engine.prefill_s:.0f} prompt tok/s), decode {engine.decode_s * 1e3:.1f} ms for "
+              f"{new - 1} steps ({decode_tok_s:.1f} tok/s, {engine.decode_s / (new - 1) * 1e3:.2f} ms/step, CUDA "
+              f"graph); flash_attn launches {n} = {L} layers x 1 prefill; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; tokens[0][:8] {out[0, :8].tolist()}")
+    # where a prefill's and a decode step's device time goes: (a)'s prefill, then 8 decode steps
+    params_c = tfm.cast_params(engine.params, cfg)
+    tokens = torch.from_numpy(rng.integers(3, V, size=(4, 2048))).cuda()
+    _profile(lambda: engine._prefill(params_c, tokens), "one prefill of 4 x 2048 tokens (bf16)")
+    logits, cache = engine._prefill(params_c, tokens)
+    cache = pad_cache(cfg, cache, 2080)
+    tok = logits.argmax(-1)
+
+    def decode8():
+        nonlocal cache, tok
+        for _ in range(8):
+            lg, cache = engine._step(params_c, tok, cache)
+            tok = lg.argmax(-1)
+
+    decode8()  # warm
+    _profile(decode8, "8 decode steps of 4 sequences at 2048-2080 cached tokens (bf16)")
+    return total
+
+
+def phase_lm_model_paths(params, cfg):
+    """fp32: the kernel path and the plain path of the prefill attention in
+    the full-width model: last-position logits, and 8 greedy tokens through
+    ServeEngine."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(2, 512))).cuda()
+    logits = {}
+    for sk in ("cuda", "torch"):
+        lg, _ = prefill_fn(cfg32, window=cfg.sliding_window, attn_kernel=sk)(params, prompts)
+        logits[sk] = lg
+    err = (logits["cuda"] - logits["torch"]).abs().max().item()
+    if not torch.allclose(logits["cuda"], logits["torch"], **LM_PATHS_TOL):
+        fail(f"fp32 prefill logits: kernel path vs plain path max_abs_err {err:.3e}")
+    engines = {sk: ServeEngine(cfg32, params, plan=lm_plan(cfg32, sk), device="cuda") for sk in ("cuda", "torch")}
+    toks = {sk: e.generate(prompts, 8) for sk, e in engines.items()}
+    if not torch.equal(toks["cuda"], toks["torch"]):
+        fail(f"greedy tokens differ between the kernel path and the plain path: {toks['cuda'].tolist()} vs "
+             f"{toks['torch'].tolist()}")
+    eager = engines["cuda"].generate(prompts, 8, cuda_graph=False)
+    if not torch.equal(eager, toks["cuda"]):
+        fail(f"greedy tokens differ between the graphed and the eager decode: {toks['cuda'].tolist()} vs "
+             f"{eager.tolist()}")
+    print(f"[lm-model] fp32 prefill of 2 x 512 tokens, logits kernel vs plain max_abs_err {err:.3e} "
+          f"(atol/rtol {LM_PATHS_TOL['atol']}; |logits| up to {logits['torch'].abs().max().item():.2f}); "
+          f"8 greedy tokens equal on both paths and with the decode graphed or eager: {toks['cuda'][0].tolist()}")
+
+
+@contextlib.contextmanager
+def _flash_wrapped(wrapper):
+    """Route the model's flash_attn calls through ``wrapper(kernel, q, k, v,
+    **kw)`` for the duration (``ops.flash_attention`` looks the wrapper up by
+    name at each call).  Launches made meanwhile count on the stand-in, not
+    on the kernel's counter: they are comparison launches."""
+    kernel = flash_ops.flash_attention_fused
+    stand_in = lambda q, k, v, **kw: wrapper(kernel, q, k, v, **kw)  # noqa: E731
+    stand_in.launches = 0
+    flash_ops.flash_attention_fused = stand_in
+    try:
+        yield
+    finally:
+        flash_ops.flash_attention_fused = kernel
+
+
+def phase_lm_bf16_paths(params, cfg):
+    """bf16, the serving runs' prompt shapes: every flash_attn call of a
+    kernel-path prefill against the plain version's fp32 output on that
+    call's inputs, and the last-position logits of the kernel path against
+    the plain path's.  At (b), a control with the kernel's window one tile
+    short must miss the logits bound."""
+    params_c = tfm.cast_params(params, cfg)
+    rng = np.random.default_rng(2)
+    for label, B, S, _ in LM_SERVE_RUNS:
+        tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).cuda()
+        calls = []
+
+        def checked(kernel, q, k, v, **kw):
+            out = kernel(q, k, v, **kw)
+            calls.append(_flash_bf16_check(out, q, k, v, kw, f"({label}) layer {len(calls)}"))
+            return out
+
+        with _flash_wrapped(checked):
+            lk, _ = prefill_fn(cfg, window=cfg.sliding_window, attn_kernel="cuda")(params_c, tokens)
+        if len(calls) != cfg.num_layers:
+            fail(f"({label}) bf16 prefill made {len(calls)} flash_attn calls, not {cfg.num_layers}")
+        lp, _ = prefill_fn(cfg, window=cfg.sliding_window, attn_kernel="torch")(params_c, tokens)
+        rel = _rel_l2(lk, lp)
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+        if rel > LM_BF16_LOGITS_REL_L2:
+            fail(f"({label}) bf16 prefill logits: kernel path vs plain path relative L2 {rel:.3e} > "
+                 f"{LM_BF16_LOGITS_REL_L2}")
+        line = (f"[lm-bf16] ({label}) {B} x {S}: {len(calls)} kernel calls vs the plain version's fp32 output, "
+                f"worst max_abs_err {max(c[0] for c in calls):.3e}, worst relative L2 {max(c[1] for c in calls):.3e} "
+                f"(bound {FLASH_BF16_REL_L2}); logits kernel path vs plain path relative L2 {rel:.3e} (bound "
+                f"{LM_BF16_LOGITS_REL_L2}), argmax equal on {100 * agree:.0f}% of rows")
+        if label == "b":
+            short = lambda kernel, q, k, v, window, **kw: kernel(q, k, v, window=window - FLASH_TILE, **kw)  # noqa: E731
+            with _flash_wrapped(short):
+                lf, _ = prefill_fn(cfg, window=cfg.sliding_window, attn_kernel="cuda")(params_c, tokens)
+            frel = _rel_l2(lf, lp)
+            if frel <= LM_BF16_LOGITS_REL_L2:
+                fail(f"control: a kernel window {FLASH_TILE} keys short passes the logits bound ({frel:.3e})")
+            line += f"; control with the kernel's window {FLASH_TILE} keys short: relative L2 {frel:.3e} (caught)"
+        print(line)
+
+
+def _attention_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal prefill of S tokens attends, with the window."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def phase_flash_timing(launches: int, max_err: float) -> dict:
+    """flash_attn at (a)'s per-layer call, bf16, L2 flushed: the kernel, its
+    plain version, and scaled_dot_product_attention with is_causal and
+    enable_gqa (the window of 4096 does not bind at S=2048, so it is the same
+    function).  Then the kernel alone at (b)'s call."""
+    s = FLASH_PREFILL_SHAPE
+    B, S, KV, G, D = s["B"], s["S"], s["KV"], s["G"], s["D"]
+    q, k, v = flash_inputs(s, torch.bfloat16, seed=9)
+    kw = dict(causal=True, window=s["window"], group=G)
+    q4, k4, v4 = q.view(B, KV * G, S, D), k.view(B, KV, S, D), v.view(B, KV, S, D)  # head h reads kv head h // G
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    kernel = lambda: flash_ops.flash_attention_fused(q, k, v, **kw)  # noqa: E731
+    plain = lambda: flash_attention_plain(q, k, v, **kw)  # noqa: E731
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)  # noqa: E731
+    kernel_ms = _median_ms(kernel, 20, flush, True)
+    plain_ms = _median_ms(plain, 10, flush, True)
+    library_ms = _median_ms(library, 20, flush, True)
+    got, lib = kernel(), library()
+    max_err = max(max_err, _flash_bf16_check(got, q, k, v, kw, "timing inputs")[0])
+    lib_err = (got.float() - lib.reshape(got.shape).float()).abs().max().item()
+    pairs = B * KV * G * _attention_pairs(S, s["window"])
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * D * pairs  # q.k and p.v: two multiply-adds per (pair, d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[timing] flash_attn at B={B} S={S} H={KV * G} KV={KV} D={D} causal bf16, median, L2 flushed: device "
+          f"time kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+          f"(kernel vs sdpa max_abs_err {lib_err:.3e}); bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
+          f"3.35 TB/s = {t_bytes * 1e6:.2f} us, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e6:.2f} us; note: the same "
+          f"flops as fp32 FMA at 67 TFLOP/s take {flops / FP32_FLOP_PER_S * 1e6:.2f} us); kernel at "
+          f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; {launches} launches in the "
+          f"two serving runs")
+    ql, kl, vl = flash_inputs(FLASH_LONG_SHAPE, torch.bfloat16, seed=10)
+    lkw = dict(causal=True, window=FLASH_LONG_SHAPE["window"], group=FLASH_LONG_SHAPE["G"])
+    long_ms = _median_ms(lambda: flash_ops.flash_attention_fused(ql, kl, vl, **lkw), 10, flush, True)
+    lflops = 4 * D * FLASH_LONG_SHAPE["KV"] * G * _attention_pairs(FLASH_LONG_SHAPE["S"], FLASH_LONG_SHAPE["window"])
+    print(f"[timing] flash_attn at (b)'s call B=1 S=8192 window 4096 bf16: kernel {long_ms:.4f} ms "
+          f"({lflops} FLOP, {lflops / long_ms / 1e9:.2f} TFLOP/s; bound "
+          f"{lflops / BF16_FLOP_PER_S * 1e3:.4f} ms)")
+    return {
+        "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -593,6 +922,23 @@ def main():
     phase_step_paths(tcfg)
     records = [phase_timing(serve_launches + train_luong_launches, ticks, max_err),
                phase_lstm_timing(lstm_launches, lstm_err)]
+    flash_err = phase_flash_parity()
+    lm_cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="bfloat16")
+    t0 = time.perf_counter()
+    lm_params = tfm.init_lm(0, lm_cfg, device="cuda")
+    n = sum(p.numel() for p in tree_leaves(lm_params))
+    qk_norm_scales = lm_cfg.num_layers * 2 * lm_cfg.head_dim  # not in param_count, as in the JAX package
+    if n != lm_cfg.param_count() + qk_norm_scales:
+        fail(f"parameter count {n} != config's {lm_cfg.param_count()} + {qk_norm_scales} qk-norm scales")
+    print(f"[lm-serve] {lm_cfg.name}: {lm_cfg.num_layers} layers, d={lm_cfg.d_model}, {lm_cfg.num_heads} q / "
+          f"{lm_cfg.num_kv_heads} kv heads of {lm_cfg.head_dim}, d_ff={lm_cfg.d_ff}, V={lm_cfg.vocab_size}, window "
+          f"{lm_cfg.sliding_window}: {n} parameters ({n * 4 / 1e9:.2f} GB fp32), initialized in "
+          f"{time.perf_counter() - t0:.1f}s")
+    flash_launches = phase_lm_serve(lm_params, lm_cfg)
+    phase_lm_model_paths(lm_params, lm_cfg)
+    phase_lm_bf16_paths(lm_params, lm_cfg)
+    del lm_params
+    records.append(phase_flash_timing(flash_launches, flash_err))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())

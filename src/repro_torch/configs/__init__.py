@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
 
 # arch id -> module name in this package
 _REGISTRY = {
+    "qwen3-1.7b": "qwen3_1_7b",
     "seq2seq-rnn": "seq2seq_rnn",
 }
 

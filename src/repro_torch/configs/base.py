@@ -1,16 +1,18 @@
 """Configuration dataclass for the ported architectures.
 
 The port's own copy of the fields of ``repro.configs.base.ModelConfig``
-that the ported families read, with the same defaults, and of
-:func:`reduced`, the smoke-test variant.  Fields of families that are not
-ported yet (MoE, Mamba, xLSTM, frontends) are left out until their slice.
+that the ported families (dense decoders and the paper's seq2seq) read,
+with the same defaults, and of :func:`reduced`, the smoke-test variant.
+Fields of families that are not ported yet (MoE, Mamba, xLSTM, encoder
+stacks, frontends) are left out until their slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
-FAMILIES = ("seq2seq",)  # the families the port serves so far
+FAMILIES = ("dense", "seq2seq")  # the families the port serves so far
 
 
 @dataclass(frozen=True)
@@ -26,6 +28,26 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # attention details
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    # projection layout: "grouped" keeps wq as [d, KV, G, Dh]; "flat" keeps
+    # [d, H, 1, Dh] and kv is broadcast per group at use
+    attn_flat: bool = False
+    rope_theta: float = 10000.0
+    partial_rotary: float = 1.0  # fraction of head_dim that is rotated
+    sliding_window: Optional[int] = None
+    learned_pos_emb: bool = False
+
+    # norms / activations
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    act: str = "silu"  # "silu" | "gelu" | "tanh" | "relu"
+    gated_mlp: bool = True
+
+    # block pattern: layer i is attention iff (i % attn_every) == attn_offset
+    attn_every: int = 1
+    attn_offset: int = 0
 
     # seq2seq (paper model) specifics
     input_feeding: bool = False
@@ -46,30 +68,61 @@ class ModelConfig:
         if self.num_heads and self.num_kv_heads and self.num_heads % self.num_kv_heads:
             raise ValueError("num_heads must be divisible by num_kv_heads")
 
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def is_attn_layer(self, i: int) -> bool:
+        return (i % self.attn_every) == self.attn_offset
+
+    @property
+    def layer_group(self) -> int:
+        """Period of the layer pattern; weights are stacked as
+        [num_layers // layer_group, ...] per position in the group."""
+        return self.attn_every if self.attn_every > 1 else 1
+
     def param_count(self) -> int:
-        """Analytic parameter count of the seq2seq model: two embedding
-        tables, the two stacked LSTMs, W_alpha, W_c and the output head F_c."""
-        h, e, v = self.d_model, self.emb_size, self.vocab_size
-        lstm = lambda in_dim: 4 * h * (in_dim + h + 1)
-        n = 2 * v * e + (0 if self.tie_embeddings else v * h)
-        dec_in0 = e + (h if self.input_feeding else 0)
-        for li in range(self.num_layers):
-            n += lstm(e if li == 0 else h) + lstm(dec_in0 if li == 0 else h)
-        return n + 3 * h * h
+        """Analytic parameter count, ``repro.configs.base._param_count``'s
+        formula for the ported families.  For the dense family it leaves out
+        the qk-norm scales (2 * head_dim per layer), as that formula does."""
+        d, v = self.d_model, self.vocab_size
+        n = v * self.emb_size + (0 if self.tie_embeddings else v * d)
+        if self.family == "seq2seq":
+            h, e = d, self.emb_size
+            lstm = lambda in_dim: 4 * h * (in_dim + h + 1)
+            n += v * e  # the target embedding
+            dec_in0 = e + (h if self.input_feeding else 0)
+            for li in range(self.num_layers):
+                n += lstm(e if li == 0 else h) + lstm(dec_in0 if li == 0 else h)
+            return n + 3 * h * h  # W_alpha, W_c
+        for i in range(self.num_layers):
+            if self.is_attn_layer(i):
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                if self.qkv_bias:
+                    n += self.q_dim + 2 * self.kv_dim
+            if self.d_ff:
+                n += (3 if self.gated_mlp else 2) * d * self.d_ff
+            n += 2 * d  # norms
+        return n + d  # final norm
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Smoke-test variant: same family, tiny dims (the same numbers as
-    ``repro.configs.base.reduced`` gives for the ported families)."""
+    """Smoke-test variant: same family and block pattern, tiny dims (the
+    same numbers as ``repro.configs.base.reduced`` gives for the ported
+    families)."""
+    period = cfg.layer_group
     d_model = min(cfg.d_model, 256)
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
         kv -= 1
-    return dataclasses.replace(
-        cfg,
+    changes = dict(
         name=cfg.name + "-smoke",
-        num_layers=2,
+        num_layers=period if period > 1 else 2,
         d_model=d_model,
         num_heads=heads,
         num_kv_heads=kv,
@@ -79,3 +132,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         emb_size=min(cfg.emb_size, d_model),
         max_seq_len=4096,
     )
+    if cfg.sliding_window:
+        changes["sliding_window"] = 64
+    return dataclasses.replace(cfg, **changes)

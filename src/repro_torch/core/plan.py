@@ -1,7 +1,8 @@
 """The port's execution plans: the meshless training half of
 ``repro.core.plan.ExecutionPlan``, and the subset of
 ``repro.core.plan.ServePlan`` that serves the seq2seq family under the
-``encdec_memory`` cache policy.
+``encdec_memory`` cache policy and the dense LM family under ``full_kv``
+and ``window``.
 
 :class:`ExecutionPlan` (training on one card):
 
@@ -19,20 +20,28 @@ queue 4, and the constructor rejects them as unknown keywords.
 
 :class:`ServePlan`:
 
-* ``cache_policy`` is ``encdec_memory``: the encoder states S are the
-  cached memory; decode is one decoder-LSTM step plus the Luong head.
+* ``cache_policy``: ``encdec_memory`` (seq2seq: the encoder states S are
+  the cached memory; decode is one decoder-LSTM step plus the Luong head),
+  ``full_kv`` (an append-only KV cache) or ``window`` (a rolling KV buffer
+  of ``window`` slots); the last two serve the dense family through the
+  static ``ServeEngine``.
 * ``max_slots`` is the slot-table size; the decode tick runs all slots and
   masks the inactive ones.
-* ``max_len`` is each slot's source capacity.
+* ``max_len`` is each slot's cache capacity (the source capacity for
+  seq2seq).
 * ``prefill_chunk``: a source enters ``prefill_chunk`` tokens per step
-  while that many remain, then one token per step.
+  while that many remain, then one token per step; the static LM engine
+  rounds its cache capacity up to a multiple of it.
 * ``admission``: ``static`` admits one batch up front; ``continuous``
   admits from the queue whenever a slot frees.
-* ``stage_kernel``: what computes the Luong head, ``cuda`` (the
-  hand-written kernel) or ``torch`` (the plain math).
+* ``window``: the rolling buffer's size (``cache_policy="window"`` only).
+* ``stage_kernel``: the kernel path, ``cuda`` (the hand-written kernels:
+  the Luong head, or the LM's prefill attention) or ``torch`` (the plain
+  math).
 
-The paged, mesh, speculative and LM fields of the JAX plan are not ported:
-:meth:`ServePlan.for_config` raises on them by name.
+The ``recurrent`` policy and the paged, mesh and speculative fields of the
+JAX plan are not ported: :meth:`ServePlan.for_config` raises on them by
+name.
 """
 from __future__ import annotations
 
@@ -41,11 +50,11 @@ from typing import Optional
 
 from repro_torch.kernels import fit_block
 
-CACHE_POLICIES = ("encdec_memory",)
+CACHE_POLICIES = ("full_kv", "window", "encdec_memory")
 ADMISSIONS = ("static", "continuous")
 STAGE_KERNELS = ("torch", "cuda")
 NOT_PORTED = frozenset({
-    "strategy", "mesh", "window", "page_size", "num_pages", "share_prefixes",
+    "strategy", "mesh", "page_size", "num_pages", "share_prefixes",
     "draft_arch", "draft_len", "acceptance",
 })
 
@@ -111,6 +120,7 @@ class ServePlan:
     max_len: int = 512  # per-slot source capacity
     prefill_chunk: int = 32
     admission: str = "continuous"
+    window: Optional[int] = None  # rolling buffer size (cache_policy="window")
     stage_kernel: str = "cuda"
 
     def __post_init__(self):
@@ -129,19 +139,40 @@ class ServePlan:
                 f"prefill_chunk={self.prefill_chunk} must divide max_len={self.max_len} "
                 "(chunked prefill tiles the cache capacity exactly)"
             )
+        if self.cache_policy == "window":
+            if self.window is None or self.window < 1:
+                raise ValueError(f"cache_policy='window' requires a positive window, got window={self.window!r}")
+            if self.prefill_chunk > self.window:
+                raise ValueError(
+                    f"prefill_chunk={self.prefill_chunk} cannot exceed window={self.window} "
+                    "(a chunk must not wrap the rolling buffer onto itself)"
+                )
+        elif self.window is not None:
+            raise ValueError(f"window is only meaningful for cache_policy='window', got {self.cache_policy!r}")
 
     @classmethod
     def for_config(cls, cfg, **overrides) -> "ServePlan":
-        """Default plan for an architecture.  Unlike the strict constructor,
-        a requested ``prefill_chunk`` is fitted to the largest divisor of
-        ``max_len`` that does not exceed it."""
+        """Default plan for an architecture: seq2seq -> encdec_memory, a
+        sliding window -> window (of ``cfg.sliding_window`` slots), else
+        full_kv.  Unlike the strict constructor, a requested
+        ``prefill_chunk`` is fitted to the largest divisor of ``max_len``
+        that does not exceed it (nor the window)."""
         unported = sorted(NOT_PORTED & set(overrides))
         if unported:
             raise NotImplementedError(f"ServePlan fields {unported} are not ported yet")
-        if cfg.family != "seq2seq":
+        if cfg.family not in ("seq2seq", "dense"):
             raise NotImplementedError(f"serving the {cfg.family!r} family is not ported yet")
-        overrides.setdefault("cache_policy", "encdec_memory")
+        if "cache_policy" not in overrides:
+            if cfg.family == "seq2seq":
+                overrides["cache_policy"] = "encdec_memory"
+            elif cfg.sliding_window:
+                overrides["cache_policy"] = "window"
+                overrides.setdefault("window", cfg.sliding_window)
+            else:
+                overrides["cache_policy"] = "full_kv"
         want = overrides.get("prefill_chunk", cls.prefill_chunk)
+        if overrides["cache_policy"] == "window" and overrides.get("window"):
+            want = min(want, overrides["window"])  # a chunk must not wrap the buffer
         overrides["prefill_chunk"] = fit_block(overrides.get("max_len", cls.max_len), want)
         plan = cls(**overrides)
         plan.validate_for(cfg)
@@ -149,8 +180,11 @@ class ServePlan:
 
     def validate_for(self, cfg) -> None:
         """The policy names the per-slot state, so it must match the family."""
-        if cfg.family != "seq2seq":
+        is_s2s = cfg.family == "seq2seq"
+        if self.cache_policy == "encdec_memory" and not is_s2s:
             raise ValueError(f"encdec_memory serves the seq2seq family, not {cfg.family!r}")
+        if is_s2s and self.cache_policy != "encdec_memory":
+            raise ValueError(f"the seq2seq family requires cache_policy='encdec_memory', got {self.cache_policy!r}")
 
     def validate_batch(self, num_requests: int) -> None:
         """Static admission runs one batch start to finish: it must fit the

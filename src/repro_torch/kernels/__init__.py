@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 LIBRARIES = {
     "luong_attn": ("luong_attn/csrc/luong_attn.cu",),
     "lstm_cell": ("lstm_cell/csrc/lstm_cell.cu",),
+    "flash_attn": ("flash_attn/csrc/flash_attn.cu",),
 }
 
 _loaded: dict = {}

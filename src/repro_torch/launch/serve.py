@@ -1,13 +1,21 @@
-"""Serving launcher of the port: plan-driven continuous batching of the
-paper's seq2seq model on the card.
+"""Serving launcher of the port, on the card: plan-driven continuous
+batching of the paper's seq2seq model, and the static-batch prefill +
+decode loop of the dense LM family.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seq2seq-rnn
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seq2seq-rnn --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --engine static
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --engine static --device cpu
 
-Weights are random, from the port's initializer and ``--seed``; requests
-are random sources of length ``prompt-len/2 .. prompt-len``.  Prints the
-summary line of ``repro.launch.serve``:
+Weights are random, from the port's initializer and ``--seed``.  The
+continuous engine serves random sources of length ``prompt-len/2 ..
+prompt-len`` and prints the summary line of ``repro.launch.serve``:
 ``[<name> | encdec_memory | <admission>] N requests, M tokens in Xs (Y tok/s)``.
+The static engine generates ``--steps`` tokens for a batch of ``--batch``
+random prompts of ``--prompt-len`` tokens and prints
+``[<name> | <cache policy> | static] generated (B, steps) in Xs (Y tok/s); prefill Zs``.
+The continuous engine's LM policies are not ported yet (ROADMAP.md queue 1
+item 5): ``--engine continuous`` with an LM arch exits with that message.
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.plan import ADMISSIONS, STAGE_KERNELS, ServePlan
 from repro_torch.models import seq2seq as s2s
-from repro_torch.serve.engine import ContinuousEngine
+from repro_torch.models import transformer as tfm
+from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 from repro_torch.serve.sampling import make_sampler
 
 
@@ -35,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=None, help="per-slot source capacity")
     ap.add_argument("--admission", choices=ADMISSIONS, default="continuous")
+    ap.add_argument("--engine", choices=("continuous", "static"), default="continuous")
+    ap.add_argument("--window", type=int, default=None, help="rolling KV window (LM archs; default: the config's)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--stage-kernel", choices=STAGE_KERNELS, default="cuda")
@@ -45,6 +56,15 @@ def main(argv=None):
         raise SystemExit(f"--arch {args.arch}: not ported yet (ported: {', '.join(ARCH_IDS)})")
     cfg = get_config(args.arch, smoke=args.smoke)
     rng = np.random.default_rng(args.seed)
+    if cfg.family == "seq2seq" and args.engine == "static":
+        raise SystemExit("the seq2seq arch serves through the continuous engine (--engine continuous)")
+    if cfg.family != "seq2seq":
+        if args.engine == "continuous":
+            raise SystemExit(f"--arch {args.arch}: the continuous engine's LM policies are not ported yet "
+                             "(ROADMAP.md queue 1 item 5); use --engine static")
+        return _serve_static(args, cfg, rng)
+    if args.window is not None:
+        raise SystemExit("--window applies to LM archs")
     params = s2s.init_seq2seq(args.seed, cfg, device=args.device)
     plan = ServePlan.for_config(
         cfg,
@@ -73,6 +93,36 @@ def main(argv=None):
     for o in outs[:2]:
         print(o.tolist())
     return outs
+
+
+def _serve_static(args, cfg, rng):
+    """The dense LM family through the static-batch ServeEngine."""
+    overrides = dict(
+        max_slots=args.max_slots or args.batch,
+        max_len=args.max_len or max(64, args.prompt_len + args.steps),
+        prefill_chunk=args.prefill_chunk,
+        admission="static",
+        stage_kernel=args.stage_kernel,
+    )
+    if args.window is not None:
+        overrides.update(cache_policy="window", window=args.window)
+    plan = ServePlan.for_config(cfg, **overrides)
+    plan.validate_batch(args.batch)
+    params = tfm.init_lm(args.seed, cfg, device=args.device)
+    engine = ServeEngine(cfg, params, plan=plan, device=args.device)
+    generator = None
+    if args.temperature > 0:
+        generator = torch.Generator(device=engine.device)
+        generator.manual_seed(args.seed)
+    prompts = rng.integers(3, cfg.vocab_size, size=(args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.steps, sampler=make_sampler(args.temperature), generator=generator)
+    dt = time.perf_counter() - t0
+    print(f"[{cfg.name} | {plan.cache_policy} | static] generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s); prefill {engine.prefill_s:.3f}s")
+    for row in out[:2].tolist():
+        print(row)
+    return out
 
 
 if __name__ == "__main__":

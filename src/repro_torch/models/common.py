@@ -76,6 +76,10 @@ class Initializer:
         del path
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
+    def ones(self, path: str, shape) -> torch.Tensor:
+        del path
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
 
 def tree_map(fn, *trees):
     """Apply ``fn`` leaf-wise over trees of tensors built from dicts, lists,
@@ -96,6 +100,106 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+# ---------------------------------------------------------------------------
+# norms / activations (repro/models/common.py)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def init_norm(ini: Initializer, path: str, d: int, kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ini.ones(path + ".scale", (d,))}
+    return {"scale": ini.ones(path + ".scale", (d,)), "bias": ini.zeros(path + ".bias", (d,))}
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def activation(name: str):
+    return {"silu": torch.nn.functional.silu, "gelu": _gelu, "tanh": torch.tanh, "relu": torch.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, partial: float = 1.0, device=None) -> torch.Tensor:
+    rot = int(head_dim * partial)
+    rot -= rot % 2
+    return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float, partial: float = 1.0):
+    """(cos, sin) [..., S, rot/2] in fp32 for ``positions`` [..., S]: computed
+    once per forward and shared by every layer."""
+    inv = rope_frequencies(head_dim, theta, partial, device=positions.device)
+    ang = positions[..., :, None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope_tables(x: torch.Tensor, tables, head_ndims: int = 1) -> torch.Tensor:
+    """Rotate x [..., S, *heads, D] by :func:`rope_tables`' (cos, sin); the
+    rotation is computed in fp32 and cast back to x's dtype."""
+    cos, sin = (t.reshape(t.shape[:-1] + (1,) * head_ndims + t.shape[-1:]) for t in tables)
+    d, rot = x.shape[-1], 2 * cos.shape[-1]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([yr, xp], dim=-1) if rot < d else yr
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, partial: float = 1.0,
+               head_ndims: int = 1) -> torch.Tensor:
+    """x: [..., S, *heads, D] with ``head_ndims`` head dims; positions
+    broadcastable to [..., S]."""
+    return apply_rope_tables(x, rope_tables(positions, x.shape[-1], theta, partial), head_ndims)
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(ini: Initializer, path: str, vocab: int, d: int) -> dict:
+    return {"table": ini.embedding(path, (vocab, d))}
+
+
+def embed(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The rows of the table, cast to ``dtype`` (the JAX package casts the
+    whole table first; the values are the same)."""
+    return p["table"][tokens.long()].to(dtype)
+
+
+def unembed(table_or_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x [..., d] @ head [d, vocab] -> logits [..., vocab] in fp32."""
+    return torch.matmul(x.float(), table_or_head.float())
 
 
 # ---------------------------------------------------------------------------

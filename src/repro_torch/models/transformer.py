@@ -1,0 +1,258 @@
+"""Decoder-only transformer of the dense family (port of the dense path of
+``repro/models/transformer.py``): prefill and decode.
+
+Layers are grouped by the architecture's block pattern
+(``cfg.layer_group``); each position in the group has its weights stacked
+``[G, ...]`` with ``G = num_layers // layer_group``, as in the JAX package,
+and the trunk is a Python loop over the groups (the JAX package scans).
+
+Modes:
+  prefill  full-sequence forward; emits each layer's KV cache
+  decode   one token (or a chunk) against the carried caches, which it
+           updates in place
+
+Training of the LM families, the MoE/SSM/xLSTM blocks, cross-attention,
+frontends and the mesh fields of ``RunCtx`` are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import common, mlp
+from repro_torch.models.common import Initializer, resolve_device, tree_map
+
+MODES = ("prefill", "decode")
+
+
+class RunCtx(NamedTuple):
+    mode: str  # "prefill" | "decode"
+    window: Optional[int] = None  # sliding window
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    # prefill attention: "cuda" = kernels/flash_attn (the CUDA kernel on the
+    # card, its plain version on the host), "torch" = chunked_attention
+    attn_kernel: str = "cuda"
+
+
+# ---------------------------------------------------------------------------
+# block pattern and init
+# ---------------------------------------------------------------------------
+
+
+def block_pattern(cfg: ModelConfig) -> list:
+    """Kinds for each position in a layer group; the dense family has only
+    'attn' blocks (the SSM and xLSTM kinds come with their families)."""
+    kinds = []
+    for pos in range(cfg.layer_group):
+        if not cfg.is_attn_layer(pos):
+            raise NotImplementedError(f"{cfg.name}: non-attention blocks are not ported yet")
+        kinds.append("attn")
+    return kinds
+
+
+def init_block(ini: Initializer, path: str, cfg: ModelConfig, kind: str) -> dict:
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    p = {
+        "norm1": common.init_norm(ini, path + ".n1", cfg.d_model, cfg.norm),
+        "attn": attn.init_attention(ini, path + ".attn", cfg),
+        "norm2": common.init_norm(ini, path + ".n2", cfg.d_model, cfg.norm),
+    }
+    if cfg.d_ff:
+        p["mlp"] = mlp.init_mlp(ini, path + ".mlp", cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    return p
+
+
+def init_lm(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
+    """Random fp32 parameters with the JAX package's names, layouts and
+    scales; blocks stacked [G, ...] per position in the layer group."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family!r} family's LM is not ported yet")
+    if cfg.learned_pos_emb:
+        raise NotImplementedError("learned position embeddings come with the audio family")
+    ini = Initializer(seed, device=resolve_device(device))
+    G = cfg.num_layers // cfg.layer_group
+    params: dict = {"embed": common.init_embedding(ini, "embed", cfg.vocab_size, cfg.emb_size)}
+    blocks = []
+    for pos, kind in enumerate(block_pattern(cfg)):
+        trees = [init_block(ini, f"blk.g{g}.p{pos}", cfg, kind) for g in range(G)]
+        blocks.append(tree_map(lambda *xs: torch.stack(xs), *trees))
+        del trees
+    params["blocks"] = blocks
+    params["final_norm"] = common.init_norm(ini, "fn", cfg.d_model, cfg.norm)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": ini.normal("lm_head", (cfg.d_model, cfg.vocab_size))}
+    return params
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The activations' dtype: bf16 when the config says so, else fp32 (the
+    JAX package's rule in ``forward_prefill``/``forward_decode``)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def cast_params(params: dict, cfg: ModelConfig) -> dict:
+    """The parameters as the forward reads them: the attention and MLP
+    weights cast once to the compute dtype; the norm scales (qk-norm too),
+    the embedding table and the LM head stay fp32, as the model reads them
+    in fp32.  The model code's own casts then become no-ops, so the numbers
+    are those of the fp32 masters cast at each use."""
+    dt = compute_dtype(cfg)
+    keep = ("q_norm", "k_norm")
+    out = dict(params)
+    out["blocks"] = [
+        {name: ({k: (a if k in keep else a.to(dt)) for k, a in sub.items()} if name in ("attn", "mlp") else sub)
+         for name, sub in blk.items()}
+        for blk in params["blocks"]
+    ]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+
+
+def _self_attention(p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, length):
+    """cache: None (prefill) or (k [B,C,KV,D], v) (decode); ``rope``: the
+    positions' (cos, sin) tables; ``length`` is the absolute position of the
+    incoming token(s).  Returns (y, cache_kv)."""
+    q, k, v = attn.project_qkv(p, cfg, x)
+    q = common.apply_rope_tables(q, rope, head_ndims=2)
+    k = common.apply_rope_tables(k, rope)
+    if ctx.mode == "decode":
+        ck, cv = cache
+        rolling = ctx.window is not None and ck.shape[1] == ctx.window
+        if rolling and x.shape[1] > 1:
+            # a chunk on a rolling buffer: attend to the pre-write buffer ++
+            # the chunk (its write evicts slots earlier queries still need)
+            o = attn.decode_attention_concat(q, ck, cv, k, v, length)
+            attn.cache_update(ck, cv, k, v, length, rolling)
+        else:
+            attn.cache_update(ck, cv, k, v, length, rolling)
+            o = attn.decode_attention(q, ck, cv, length, rolling=rolling)
+        return attn.output_proj(p, cfg, o), (ck, cv)
+    o = attn.attend(q, k, v, causal=True, window=ctx.window, q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk,
+                    kernel=ctx.attn_kernel)
+    y = attn.output_proj(p, cfg, o)
+    W = ctx.window
+    if W is not None and k.shape[1] > W:  # keep only the rolling window:
+        S = k.shape[1]  # slot s holds the position p with p % W == s
+        order = torch.argsort(torch.arange(S - W, S, device=k.device) % W)
+        k, v = k[:, S - W :][:, order], v[:, S - W :][:, order]
+    return y, (k, v)
+
+
+def _ffn(p_block: dict, cfg: ModelConfig, x):
+    if "mlp" in p_block:
+        return mlp.apply_mlp(p_block["mlp"], x, cfg.act, cfg.gated_mlp)
+    return torch.zeros_like(x)
+
+
+def apply_block(kind: str, p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, length=None):
+    """Returns (x, new_cache); ``rope`` is :func:`common.rope_tables` of the
+    tokens' positions."""
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    h = common.apply_norm(p["norm1"], x, cfg.norm)
+    y, new_cache = _self_attention(p["attn"], cfg, h, ctx, cache, rope, length)
+    x = x + y
+    h2 = common.apply_norm(p["norm2"], x, cfg.norm)
+    return x + _ffn(p, cfg, h2), new_cache
+
+
+# ---------------------------------------------------------------------------
+# cache + trunk
+# ---------------------------------------------------------------------------
+
+
+class LMCache(NamedTuple):
+    """Stacked per-group caches: one (k [G,B,C,KV,D], v) per position in the
+    layer group; ``length`` is the absolute position count, a 0-d int64
+    tensor on the cache's device (so a captured decode step reads it there)."""
+
+    entries: tuple
+    length: torch.Tensor
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, window: Optional[int] = None, *, device="cuda",
+               dtype: torch.dtype = torch.bfloat16) -> LMCache:
+    G = cfg.num_layers // cfg.layer_group
+    C = min(capacity, window) if window else capacity
+    dev = resolve_device(device)
+    entries = []
+    for _ in block_pattern(cfg):
+        shape = (G, batch, C, cfg.num_kv_heads, cfg.head_dim)
+        entries.append((torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev)))
+    return LMCache(entries=tuple(entries), length=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def run_trunk(params: dict, cfg: ModelConfig, x, ctx: RunCtx, cache: Optional[LMCache], positions):
+    """x [B,S,d] -> (x, new_cache).  Prefill builds the caches (``cache`` is
+    an empty LMCache, or None for no caches); decode consumes ``cache`` and
+    writes its entries in place."""
+    if ctx.mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {ctx.mode!r}")
+    kinds = block_pattern(cfg)
+    consume = cache is not None and ctx.mode == "decode"
+    length = cache.length if cache is not None else None
+    G = cfg.num_layers // cfg.layer_group
+    rope = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.partial_rotary)
+    built = [[] for _ in kinds]
+    for g in range(G):
+        for pos, kind in enumerate(kinds):
+            weights = tree_map(lambda a: a[g], params["blocks"][pos])
+            layer_cache = (cache.entries[pos][0][g], cache.entries[pos][1][g]) if consume else None
+            x, nc = apply_block(kind, weights, cfg, x, ctx, layer_cache, rope, length)
+            if not consume:
+                built[pos].append(nc)
+    if cache is None:
+        return x, None
+    if consume:
+        return x, LMCache(entries=cache.entries, length=cache.length)
+    entries = tuple((torch.stack([kv[0] for kv in col]), torch.stack([kv[1] for kv in col])) for col in built)
+    return x, LMCache(entries=entries, length=cache.length)
+
+
+# ---------------------------------------------------------------------------
+# heads and top-level forwards
+# ---------------------------------------------------------------------------
+
+
+def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+def forward_prefill(params: dict, cfg: ModelConfig, tokens, *, ctx: RunCtx = RunCtx(mode="prefill")):
+    """tokens [B, S] -> (logits at the last position [B, V] fp32, cache)."""
+    x = common.embed(params["embed"], tokens, compute_dtype(cfg))
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    x, cache = run_trunk(params, cfg, x, ctx, LMCache(entries=(), length=None), positions)
+    x = common.apply_norm(params["final_norm"], x, cfg.norm)
+    logits = common.unembed(lm_head_weight(params, cfg), x[:, -1:])[:, 0]
+    return logits, cache._replace(length=torch.tensor(S, device=x.device))
+
+
+def forward_decode(params: dict, cfg: ModelConfig, token, cache: LMCache, *, ctx: RunCtx = RunCtx(mode="decode"),
+                   all_positions: bool = False):
+    """One token ([B]) or a chunk ([B, s]) against the cache, whose entries
+    are written in place (no host synchronisation: the step can be captured
+    in a CUDA graph).  Returns (logits at the last position [B, V], or at
+    every position [B, s, V] with ``all_positions``; the cache with length
+    advanced by s)."""
+    tokens = token if token.dim() == 2 else token[:, None]
+    s = tokens.shape[1]
+    x = common.embed(params["embed"], tokens, compute_dtype(cfg))
+    positions = (cache.length + torch.arange(s, device=x.device))[None, :]
+    x, new_cache = run_trunk(params, cfg, x, ctx, cache, positions)
+    x = common.apply_norm(params["final_norm"], x, cfg.norm)
+    head = lm_head_weight(params, cfg)
+    logits = common.unembed(head, x) if all_positions else common.unembed(head, x[:, -1:])[:, 0]
+    return logits, LMCache(entries=new_cache.entries, length=cache.length + s)

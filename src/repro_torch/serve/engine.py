@@ -1,6 +1,14 @@
-"""Continuous-batching engine for the ``encdec_memory`` cache policy (port of
-``repro.serve.engine.ContinuousEngine`` without its paged, speculative and
-mesh branches).
+"""Serving engines (port of ``repro/serve/engine.py`` without its paged,
+speculative and mesh branches).
+
+``ServeEngine`` is the static-batch loop of the dense LM family: one
+prefill over the padded batch (``prefill_fn``; its attention runs on the
+``flash_attn`` kernel on the card), the caches padded to a capacity bucket
+(``pad_cache``), then one decode step per new token (``serve_step_fn``).
+
+``ContinuousEngine`` is the continuous-batching engine of the
+``encdec_memory`` cache policy (the seq2seq family; the LM policies of the
+JAX package's engine are not ported yet, ROADMAP queue 1 item 5):
 
 * chunked prefill: a source enters ``prefill_chunk`` tokens per step while
   that many remain, then one token per step, interleaved with decode ticks;
@@ -16,6 +24,7 @@ mesh branches).
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, List, Optional, Sequence
 
@@ -25,8 +34,158 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import ServePlan
 from repro_torch.models import seq2seq as s2s
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.serve.sampling import greedy
+
+
+def serve_step_fn(cfg: ModelConfig, *, window: Optional[int] = None):
+    """One decode step: (params, token [B], cache) -> (next logits [B, V],
+    cache); the cache's entries are updated in place."""
+    ctx = tfm.RunCtx(mode="decode", window=window)
+
+    def step(params, token, cache):
+        return tfm.forward_decode(params, cfg, token, cache, ctx=ctx)
+
+    return step
+
+
+def prefill_fn(cfg: ModelConfig, *, window: Optional[int] = None, q_chunk: int = 128, attn_kernel: str = "cuda"):
+    """The prefill: (params, tokens [B, S]) -> (logits at the last position
+    [B, V], cache).  ``attn_kernel`` picks the attention: ``cuda`` (the
+    flash_attn kernel) or ``torch`` (the plain chunked attention)."""
+    ctx = tfm.RunCtx(mode="prefill", window=window, q_chunk=q_chunk, attn_kernel=attn_kernel)
+
+    def prefill(params, tokens):
+        return tfm.forward_prefill(params, cfg, tokens, ctx=ctx)
+
+    return prefill
+
+
+def pad_cache(cfg: ModelConfig, cache: tfm.LMCache, capacity: int) -> tfm.LMCache:
+    """Grow the attention entries (prefill emits exactly S slots, or the
+    window's W) to ``capacity`` slots so decode can append; never shrinks."""
+    entries = []
+    for k, v in cache.entries:
+        extra = capacity - k.shape[2]
+        if extra > 0:
+            z = torch.zeros(k.shape[:2] + (extra,) + k.shape[3:], dtype=k.dtype, device=k.device)
+            k, v = torch.cat([k, z], dim=2), torch.cat([v, z], dim=2)
+        entries.append((k, v))
+    return tfm.LMCache(entries=tuple(entries), length=cache.length)
+
+
+class ServeEngine:
+    """Static-batch prefill + decode loop of the dense LM family.
+
+    A :class:`ServePlan` (``full_kv`` or ``window``) replaces the loose
+    keywords: its window, ``max_len``, ``prefill_chunk`` (the capacity
+    bucket) and ``stage_kernel`` (the prefill attention's kernel).  The fp32
+    master weights are moved to ``device`` once and cast to the compute
+    dtype once per :meth:`generate` call, not per token.  ``prefill_s`` and
+    ``decode_s`` hold the last call's prefill (first token included) and
+    decode wall times, each ended by a synchronise on the card.
+
+    Greedy decode on the card replays one CUDA graph per token: the first
+    step runs eagerly (it also warms the allocator and cuBLAS), the second is
+    captured, and every later one is a replay.  The eager step issues a few
+    thousand small launches, which the host cannot feed as fast as the card
+    runs them; the graph launches them as one.  ``cuda_graph=False`` runs
+    every step eagerly, which is what the CPU and sampled decoding do.
+
+    The decode cache's capacity is ``prompt + steps`` rounded up to a
+    ``pad_to`` multiple and capped at ``max_len``, as in the JAX engine, and
+    also at the window: a windowed cache then always decodes as the rolling
+    buffer (the JAX engine pads past the window when ``max_len`` exceeds it,
+    and its decode then drops the window; ROADMAP queue 3).  A request that
+    does not fit an unwindowed cache raises.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, plan: Optional[ServePlan] = None,
+                 window: Optional[int] = None, max_len: int = 512, pad_to: int = 32, attn_kernel: str = "cuda",
+                 device="cuda"):
+        if cfg.family != "dense":
+            raise ValueError(f"ServeEngine serves the dense LM family, not {cfg.family!r}")
+        if plan is not None:
+            plan.validate_for(cfg)
+            window, max_len, pad_to, attn_kernel = plan.window, plan.max_len, plan.prefill_chunk, plan.stage_kernel
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = tree_map(lambda a: a.to(self.device), params)
+        self.window = window
+        self.max_len = max_len
+        self.pad_to = max(1, pad_to)
+        self._prefill = prefill_fn(cfg, window=window, attn_kernel=attn_kernel)
+        self._step = serve_step_fn(cfg, window=window)
+        self.prefill_s = self.decode_s = 0.0
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _capacity(self, prompt_len: int, steps: int, prefilled: int) -> int:
+        need = prompt_len + steps
+        cap = min(self.max_len, -(-need // self.pad_to) * self.pad_to)
+        if self.window is not None:
+            cap = min(cap, self.window)
+        cap = max(cap, prefilled)
+        if need > cap and cap != self.window:
+            raise ValueError(f"prompt {prompt_len} + {steps} steps exceed the cache capacity {cap} "
+                             f"(max_len={self.max_len}, window={self.window})")
+        return cap
+
+    def _decode_graphed(self, params, tok: torch.Tensor, cache: tfm.LMCache, n: int) -> list:
+        """``n`` greedy decode steps from ``tok``: one eager, then one CUDA
+        graph captured and replayed.  The token, the length and the cache
+        live in fixed buffers that the step updates in place."""
+        tok_buf = tok.clone()
+        state = tfm.LMCache(entries=cache.entries, length=cache.length.clone())
+
+        def step():
+            logits, _ = self._step(params, tok_buf, state)
+            tok_buf.copy_(greedy(logits))
+            state.length.add_(1)
+
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):  # warm-up off the capture's stream, as torch.cuda.graph asks
+            step()
+        main.wait_stream(side)
+        out = [tok_buf.clone()]
+        if n > 1:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            for _ in range(n - 1):
+                graph.replay()
+                out.append(tok_buf.clone())
+        return out
+
+    def generate(self, prompt_tokens, steps: int, *, sampler=greedy,
+                 generator: Optional[torch.Generator] = None, cuda_graph: bool = True) -> torch.Tensor:
+        """prompt_tokens [B, S] -> generated [B, steps] int64, on the engine's device."""
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        tokens = torch.as_tensor(prompt_tokens, device=self.device).long()
+        params = tfm.cast_params(self.params, self.cfg)
+        t0 = time.perf_counter()
+        logits, cache = self._prefill(params, tokens)
+        cache = pad_cache(self.cfg, cache, self._capacity(tokens.shape[1], steps, cache.entries[0][0].shape[2]))
+        tok = sampler(logits, generator)
+        self._sync()
+        t1 = time.perf_counter()
+        out = [tok]
+        if cuda_graph and sampler is greedy and self.device.type == "cuda" and steps > 1:
+            out += self._decode_graphed(params, tok, cache, steps - 1)
+        else:
+            for _ in range(steps - 1):
+                logits, cache = self._step(params, tok, cache)
+                tok = sampler(logits, generator)
+                out.append(tok)
+        self._sync()
+        self.prefill_s, self.decode_s = t1 - t0, time.perf_counter() - t1
+        return torch.stack(out, dim=1)
 
 
 class RequestError(Exception):
@@ -72,6 +231,10 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, params: dict, plan: Optional[ServePlan] = None, *, bos: int = 1,
                  eos: Optional[int] = None, poison_on_recycle: bool = False, check_live_finite: bool = False):
+        if cfg.family != "seq2seq":
+            raise NotImplementedError(
+                f"the continuous engine serves the seq2seq family; its LM policies ({cfg.family!r}) are not ported "
+                "yet (ROADMAP.md queue 1 item 5): use ServeEngine")
         self.plan = plan if plan is not None else ServePlan.for_config(cfg)
         self.plan.validate_for(cfg)
         self.cfg = cfg

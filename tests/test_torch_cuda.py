@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attn.ref import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.luong_attn import ops  # noqa: E402
@@ -148,3 +150,84 @@ def test_luong_kernel_matches_plain(cuda):
             want = luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:])
             np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL_ATTN[dname],
                                        err_msg=f"{s} {dname}")
+
+
+# kernel_harness.py's flash_attn shapes (blocks dropped), a ragged S != T
+# shape, and the serving prefill's full-width per-layer call (qwen3-1.7b:
+# B=4, S=2048, 16 q heads on 8 kv heads, D=128, window 4096)
+FLASH_SHAPES = [
+    dict(B=2, S=128, T=128, KV=2, G=2, D=32, causal=True, window=None),
+    dict(B=1, S=256, T=256, KV=1, G=4, D=64, causal=True, window=64),
+    dict(B=2, S=64, T=64, KV=4, G=1, D=16, causal=False, window=None),
+    dict(B=1, S=128, T=128, KV=2, G=1, D=128, causal=True, window=32),
+    dict(B=1, S=96, T=96, KV=1, G=2, D=32, causal=True, window=None),
+    dict(B=1, S=32, T=32, KV=1, G=1, D=8, causal=True, window=1),
+    dict(B=2, S=77, T=131, KV=2, G=3, D=40, causal=False, window=50),
+    dict(B=2, S=77, T=131, KV=2, G=3, D=48, causal=True, window=50),
+    dict(B=4, S=2048, T=2048, KV=8, G=2, D=128, causal=True, window=4096),
+]
+
+
+# bf16 against the plain version's fp32 output on the same bf16 inputs: only
+# the kernel's own rounding is left (P in bf16, the output in bf16)
+FLASH_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+FLASH_BF16_REL_L2 = 1e-2
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, dname):
+    """fp32 runs the FMA kernel; bf16 the tensor-core kernel where D is a
+    multiple of 16 (the FMA kernel at D=8 and D=40)."""
+    for s in FLASH_SHAPES:
+        rng = np.random.default_rng(0)
+        B, S, T, KV, G, D = s["B"], s["S"], s["T"], s["KV"], s["G"], s["D"]
+        f = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", TORCH_DT[dname])  # noqa: E731
+        q, k, v = f((B * KV * G, S, D)), f((B * KV, T, D)), f((B * KV, T, D))
+        kw = dict(causal=s["causal"], window=s["window"], group=G)
+        before = flash_ops.flash_attention_fused.launches
+        got = flash_ops.flash_attention_fused(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_ops.flash_attention_fused.launches == before + 1
+        want = flash_attention_plain(q, k, v, **kw)
+        assert got.dtype == q.dtype and got.shape == q.shape
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL_ATTN[dname],
+                                   err_msg=f"{s} {dname}")
+        if dname == "bfloat16":
+            want32 = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+            np.testing.assert_allclose(got.float().cpu().numpy(), want32.cpu().numpy(), **FLASH_BF16_TOL,
+                                       err_msg=f"{s} bf16 vs the plain version's fp32 output")
+            rel = ((got.float() - want32).norm() / want32.norm()).item()
+            assert rel <= FLASH_BF16_REL_L2, (s, rel)
+
+
+def test_flash_flat_layout_matches_grouped(cuda):
+    """The flat [B,S,H,1,D] layout regroups to [B,S,KV,H/KV,D] before the
+    launch: the same numbers as the grouped call."""
+    rng = np.random.default_rng(1)
+    B, S, KV, G, D = 2, 300, 4, 2, 64
+    f = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", torch.bfloat16)  # noqa: E731
+    q, k, v = f((B, S, KV, G, D)), f((B, S, KV, D)), f((B, S, KV, D))
+    grouped = flash_ops.flash_attention(q, k, v, causal=True, window=100)
+    flat = flash_ops.flash_attention(q.reshape(B, S, KV * G, 1, D), k, v, causal=True, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(flat.reshape(grouped.shape), grouped)
+
+
+def test_graphed_decode_matches_eager(cuda):
+    """ServeEngine's greedy decode replays a CUDA graph of the step: the same
+    tokens as the eager steps, on both sides of the window, fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import ServePlan
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True), num_kv_heads=2, dtype="float32")
+    engine = ServeEngine(cfg, tfm.init_lm(0, cfg, device="cuda"), plan=ServePlan.for_config(cfg, max_len=64))
+    rng = np.random.default_rng(0)
+    for S, steps in ((40, 12), (50, 24), (100, 8)):
+        prompts = rng.integers(3, cfg.vocab_size, size=(2, S))
+        graphed = engine.generate(prompts, steps)
+        eager = engine.generate(prompts, steps, cuda_graph=False)
+        assert graphed.tolist() == eager.tolist(), (S, steps)

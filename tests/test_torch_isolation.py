@@ -1,8 +1,8 @@
 """Boundaries of the port: ``repro_torch`` and ``chip_smoke.py`` import
 nothing of JAX or of the JAX package; entry points run on the card unless
-asked for the CPU; the luong wrapper's CPU path is the plain version; the
-weight bridge moves every leaf of a JAX param tree and reads the JAX
-package's checkpoints.
+asked for the CPU; the luong and flash_attn wrappers' CPU paths are their
+plain versions; the weight bridge moves every leaf of a JAX param tree (the
+seq2seq and the LM trees) and reads the JAX package's checkpoints.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import jax  # noqa: E402
 from repro.checkpoint import save_checkpoint  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import seq2seq as js2s  # noqa: E402
+from repro.models import transformer as jtfm  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.luong_attn import ops  # noqa: E402
@@ -60,7 +61,7 @@ def test_port_imports_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 31  # every module of the package was imported, the training slice's too
+    assert int(res.stdout.split()[-1]) >= 38  # every module of the package was imported, the LM slice's too
 
 
 def test_entry_points_default_to_cuda():
@@ -133,3 +134,59 @@ def test_bridge_reads_jax_checkpoint(tmp_path):
     save_checkpoint(str(tmp_path), 7, tree)
     port = bridge.load_jax_checkpoint(str(tmp_path), 7, device="cpu")
     _assert_same_tree(tree, port)
+
+
+def test_lm_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.init_lm(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, tfm.init_lm(0, cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--engine", "static"])
+
+
+@pytest.mark.parametrize("layout", ["kernel", "grouped", "flat"])
+def test_flash_wrapper_cpu_path_is_plain_version(layout):
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.flash_attn.ref import flash_attention_plain
+
+    g = torch.Generator().manual_seed(0)
+    B, S, KV, G, D = 2, 40, 2, 2, 16
+    k, v = torch.randn(B * KV, S, D, generator=g), torch.randn(B * KV, S, D, generator=g)
+    q = torch.randn(B * KV * G, S, D, generator=g)
+    before = flash_ops.flash_attention_fused.launches
+    want = flash_attention_plain(q, k, v, causal=True, window=8, group=G)
+    if layout == "kernel":
+        got = flash_ops.flash_attention_fused(q, k, v, causal=True, window=8, group=G)
+    else:  # the same numbers in the model's layouts
+        qm = q.reshape(B, KV, G, S, D).permute(0, 3, 1, 2, 4)
+        if layout == "flat":
+            qm = qm.reshape(B, S, KV * G, 1, D)
+        km, vm = (t.reshape(B, KV, S, D).permute(0, 2, 1, 3) for t in (k, v))
+        got = flash_ops.flash_attention(qm, km, vm, causal=True, window=8)
+        got = got.reshape(B, S, KV, G, D).permute(0, 2, 3, 1, 4).reshape(B * KV * G, S, D)
+    assert flash_ops.flash_attention_fused.launches == before
+    assert torch.equal(got, want)
+
+
+def test_bridge_round_trips_lm_tree():
+    """Every leaf of the JAX LM tree: the stacked [G, ...] blocks, the flat
+    layout's 5-D wq/wo, the qk-norm scales and the tied embedding table."""
+    jcfg = dataclasses.replace(jax_get_config("qwen3-1.7b", smoke=True), num_kv_heads=2)
+    tree = jax.device_get(jtfm.init_lm(jax.random.key(0), jcfg)[0])
+    port = bridge.params_from_jax(tree, device="cpu")
+    _assert_same_tree(tree, port)
+    attn = port["blocks"][0]["attn"]
+    assert tuple(attn["wq"].shape) == (2, 256, 4, 1, 64) and tuple(attn["wo"].shape) == (2, 4, 1, 64, 256)
+    assert tuple(attn["q_norm"].shape) == (2, 64) and "lm_head" not in port
+    back = jax.tree_util.tree_map(lambda t: t.numpy(), port, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    _assert_same_tree(back, port)

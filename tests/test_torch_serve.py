@@ -157,11 +157,13 @@ def test_plan_checks():
     cfg, _ = _port_model()
     plan = ServePlan.for_config(cfg, max_len=30, prefill_chunk=8)
     assert plan.prefill_chunk == 6 and plan.cache_policy == "encdec_memory" and plan.stage_kernel == "cuda"
-    for bad in (dict(page_size=8), dict(draft_arch="xlstm-350m"), dict(mesh=None), dict(window=4)):
+    for bad in (dict(page_size=8), dict(draft_arch="xlstm-350m"), dict(mesh=None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServePlan.for_config(cfg, **bad)
+    with pytest.raises(ValueError, match="only meaningful for cache_policy='window'"):
+        ServePlan.for_config(cfg, window=4)  # the window policy serves the LM family, not seq2seq
     with pytest.raises(ValueError, match="not ported"):
-        ServePlan(cache_policy="full_kv")
+        ServePlan(cache_policy="recurrent")
     with pytest.raises(ValueError, match="must divide"):
         ServePlan(max_len=30, prefill_chunk=8)
     with pytest.raises(ValueError, match="stage_kernel"):
