@@ -34,8 +34,9 @@ Phases, each printed as it runs; any failure exits nonzero:
 10. ``flash_attn`` kernel vs plain, fp32 (the FMA kernel) and bf16 (the
     tensor-core kernel; the FMA kernel at D=8): the ``tests/kernel_harness.py``
     shapes, the full-width prefill's per-layer call (B=4, S=2048, 16 q heads
-    on 8 kv heads, D=128, window 4096) and a window-binding one (B=1,
-    S=8192).  bf16 is also held against the plain version's fp32 output on
+    on 8 kv heads, D=128, window 4096), a window-binding one (B=1,
+    S=8192) and the MoE LM's prefill call (B=4, S=2048, 32 q heads on 4 kv
+    heads).  bf16 is also held against the plain version's fp32 output on
     the same bf16 inputs (FLASH_BF16_TOL and a relative L2 bound), and a
     control with the window one 64-key tile short must miss that bound;
 11. LM serving: the full-width ``qwen3-1.7b`` (28 layers, d=2048, V=151936,
@@ -54,9 +55,41 @@ Phases, each printed as it runs; any failure exits nonzero:
     fp32 output on its own inputs, and the last-position logits against the
     plain path's (relative L2); at (b) a control with the kernel's window one
     tile short must miss the logits bound;
-14. timing with CUDA events: ``flash_attn`` at (a)'s per-layer call against
+14. ``moe_gemm`` kernel vs plain, fp32 (the FMA kernels) and bf16 (the
+    tensor-core kernels; the FMA kernels where F is not a multiple of 8): the
+    ``tests/kernel_harness.py`` shapes, a shape ragged in every tile, and the
+    MoE serving run's two calls, prefill [128, 641, 2048] x [128, 2048, 768]
+    and decode (C=1); empty slots must come back exactly zero.  bf16 is also
+    held against the plain version's fp32 output on the same bf16 inputs
+    (MOE_BF16_TOL, relative L2), and a control that drops the last 64
+    columns of F must miss that bound;
+15. MoE serving: ``qwen3-moe-30b-a3b`` at full width, its depth cut to 8 of
+    48 layers (bf16 over fp32 masters, random weights from seed 0), through
+    ``ServeEngine.generate`` at (a)'s shape: 4 prompts of 2048 tokens, 32 new
+    tokens; exactly 8 ``flash_attn`` launches (the prefill) and 24
+    ``moe_gemm`` launches (8 in the prefill, 8 in the eager decode step, 8 in
+    the capture of the CUDA graph; the replays launch from the graph); then
+    one prefill and 8 eager decode steps under ``torch.profiler``, and one
+    replay of a captured decode graph, whose kernels must include the two
+    ``moe_gemm`` kernels 8 times each;
+16. kernel path vs plain path in the MoE LM, fp32: one prefill of 2 prompts
+    of 512 tokens (last-position logits within 1e-4) and 8 greedy tokens
+    through ``ServeEngine``, graphed and eager;
+17. kernel path vs plain path in the MoE LM, bf16, at (a): each of the 8
+    ``moe_gemm`` calls and each of the 8 ``flash_attn`` calls of the prefill
+    against its plain version's fp32 output on its own inputs, and the
+    last-position logits against the plain path's (relative L2), with two
+    controls that must miss that bound: 64 columns of F dropped in every
+    ``moe_gemm`` call, and the flat query heads regrouped under the wrong
+    kv heads in every ``flash_attn`` call;
+18. timing with CUDA events: ``flash_attn`` at (a)'s per-layer call against
     its plain version and ``scaled_dot_product_attention`` (the library
-    yardstick, used nowhere in the port), and at (b)'s.
+    yardstick, used nowhere in the port), and at (b)'s; ``moe_gemm`` at the
+    MoE prefill's call, at a decode step's call on a dense buffer (every
+    expert has a row) and on the dispatch buffer of a served decode step
+    (its bound counts only the experts with a row), against its plain
+    version and, as a yardstick used nowhere in the port, ``torch.bmm`` x 3
+    plus the gate.
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
 launches of the serving runs and the training run, each counted from 0
@@ -90,6 +123,9 @@ from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.luong_attn import ops as luong_ops  # noqa: E402
 from repro_torch.kernels.luong_attn.ref import luong_attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_plain  # noqa: E402
+from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import seq2seq as s2s  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
@@ -158,6 +194,7 @@ FLASH_HARNESS_SHAPES = [
 ]
 FLASH_PREFILL_SHAPE = dict(B=4, S=2048, KV=8, G=2, D=128, causal=True, window=4096)
 FLASH_LONG_SHAPE = dict(B=1, S=8192, KV=8, G=2, D=128, causal=True, window=4096)
+FLASH_MOE_SHAPE = dict(B=4, S=2048, KV=4, G=8, D=128, causal=True, window=4096)  # the MoE LM's prefill call
 LM_SERVE_RUNS = [("a", 4, 2048, 32), ("b", 1, 8192, 16)]  # (label, prompts, prompt tokens, new tokens)
 LM_PATHS_TOL = dict(atol=1e-3, rtol=1e-3)  # fp32 logits after 28 layers, two summation orders of attention
 # bf16 flash_attn against the plain version's fp32 output on the same bf16
@@ -166,8 +203,29 @@ LM_PATHS_TOL = dict(atol=1e-3, rtol=1e-3)  # fp32 logits after 28 layers, two su
 FLASH_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
 FLASH_BF16_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain||
 FLASH_TILE = 64  # keys per staged tile of the tensor-core kernel (kMmaBKV)
-# bf16 last-position logits, kernel path vs plain path after 28 layers
+# bf16 last-position logits, kernel path vs plain path after 28 layers (8 in the MoE LM)
 LM_BF16_LOGITS_REL_L2 = 5e-2
+MOE_REPLACES = "src/repro/kernels/moe_gemm/kernel.py:23"
+MOE_SOURCE = "src/repro_torch/kernels/moe_gemm/csrc/moe_gemm.cu"
+# tests/kernel_harness.py's moe_gemm shapes (blocks dropped), a shape ragged in
+# every tile of the tensor-core path, then the MoE serving run's two calls:
+# the prefill of 4 x 2048 tokens (65,536 slots on 128 experts, capacity 641)
+# and a decode step (32 slots, capacity 1)
+MOE_HARNESS_SHAPES = [
+    dict(E=4, C=16, d=32, F=64), dict(E=2, C=8, d=64, F=96), dict(E=8, C=32, d=16, F=16),
+    dict(E=1, C=1, d=16, F=16), dict(E=3, C=10, d=24, F=36),
+]
+MOE_RAGGED_SHAPE = dict(E=2, C=70, d=40, F=72)
+MOE_PREFILL_SHAPE = dict(E=128, C=641, d=2048, F=768)
+MOE_DECODE_SHAPE = dict(E=128, C=1, d=2048, F=768)
+# bf16 moe_gemm against the plain version's fp32 output on the same bf16
+# inputs: only the kernel's own rounding is left (h and the output in bf16)
+MOE_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+MOE_BF16_REL_L2 = 1e-2
+MOE_CONTROL_COLS = 64  # the control drops this many columns of F
+MOE_LAYERS = 8  # of qwen3-moe-30b-a3b's 48: the fp32 masters of 48 are 122 GB
+MOE_SERVE_RUN = ("a", 4, 2048, 32)  # (label, prompts, prompt tokens, new tokens)
+MOE_PATHS_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 logits after 8 MoE layers
 
 
 def fail(msg: str):
@@ -636,7 +694,7 @@ def phase_flash_parity() -> float:
     against the plain version's fp32 output."""
     worst = 0.0
     cases = [(f"harness-{i}", s) for i, s in enumerate(FLASH_HARNESS_SHAPES)]
-    cases += [("prefill-a", FLASH_PREFILL_SHAPE), ("prefill-b", FLASH_LONG_SHAPE)]
+    cases += [("prefill-a", FLASH_PREFILL_SHAPE), ("prefill-b", FLASH_LONG_SHAPE), ("moe-prefill", FLASH_MOE_SHAPE)]
     for label, s in cases:
         for dname, dtype in DTYPES.items():
             q, k, v = flash_inputs(s, dtype)
@@ -683,9 +741,10 @@ def lm_plan(cfg, stage_kernel: str = "cuda"):
                                 stage_kernel=stage_kernel)
 
 
-def _profile(fn, label: str, top: int = 12):
+def _profile(fn, label: str, top: int = 12) -> list:
     """Device time by op of one call of ``fn`` under torch.profiler, and the
-    device's busy share of its wall time (the profiler's overhead included)."""
+    device's busy share of its wall time (the profiler's overhead included).
+    Returns the device-side events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -706,6 +765,7 @@ def _profile(fn, label: str, top: int = 12):
     for e in events[:top]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d} calls  "
               f"{100 * e.self_device_time_total / device_us:5.1f}%  {e.key[:90]}")
+    return events
 
 
 def phase_lm_serve(params, cfg) -> int:
@@ -768,7 +828,7 @@ def phase_lm_model_paths(params, cfg):
     prompts = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(2, 512))).cuda()
     logits = {}
     for sk in ("cuda", "torch"):
-        lg, _ = prefill_fn(cfg32, window=cfg.sliding_window, attn_kernel=sk)(params, prompts)
+        lg, _ = prefill_fn(cfg32, window=cfg.sliding_window, stage_kernel=sk)(params, prompts)
         logits[sk] = lg
     err = (logits["cuda"] - logits["torch"]).abs().max().item()
     if not torch.allclose(logits["cuda"], logits["torch"], **LM_PATHS_TOL):
@@ -821,10 +881,10 @@ def phase_lm_bf16_paths(params, cfg):
             return out
 
         with _flash_wrapped(checked):
-            lk, _ = prefill_fn(cfg, window=cfg.sliding_window, attn_kernel="cuda")(params_c, tokens)
+            lk, _ = prefill_fn(cfg, window=cfg.sliding_window, stage_kernel="cuda")(params_c, tokens)
         if len(calls) != cfg.num_layers:
             fail(f"({label}) bf16 prefill made {len(calls)} flash_attn calls, not {cfg.num_layers}")
-        lp, _ = prefill_fn(cfg, window=cfg.sliding_window, attn_kernel="torch")(params_c, tokens)
+        lp, _ = prefill_fn(cfg, window=cfg.sliding_window, stage_kernel="torch")(params_c, tokens)
         rel = _rel_l2(lk, lp)
         agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
         if rel > LM_BF16_LOGITS_REL_L2:
@@ -837,7 +897,7 @@ def phase_lm_bf16_paths(params, cfg):
         if label == "b":
             short = lambda kernel, q, k, v, window, **kw: kernel(q, k, v, window=window - FLASH_TILE, **kw)  # noqa: E731
             with _flash_wrapped(short):
-                lf, _ = prefill_fn(cfg, window=cfg.sliding_window, attn_kernel="cuda")(params_c, tokens)
+                lf, _ = prefill_fn(cfg, window=cfg.sliding_window, stage_kernel="cuda")(params_c, tokens)
             frel = _rel_l2(lf, lp)
             if frel <= LM_BF16_LOGITS_REL_L2:
                 fail(f"control: a kernel window {FLASH_TILE} keys short passes the logits bound ({frel:.3e})")
@@ -884,7 +944,7 @@ def phase_flash_timing(launches: int, max_err: float) -> dict:
           f"3.35 TB/s = {t_bytes * 1e6:.2f} us, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e6:.2f} us; note: the same "
           f"flops as fp32 FMA at 67 TFLOP/s take {flops / FP32_FLOP_PER_S * 1e6:.2f} us); kernel at "
           f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; {launches} launches in the "
-          f"two serving runs")
+          f"serving runs (qwen3-1.7b (a) and (b), qwen3-moe-30b-a3b (a))")
     ql, kl, vl = flash_inputs(FLASH_LONG_SHAPE, torch.bfloat16, seed=10)
     lkw = dict(causal=True, window=FLASH_LONG_SHAPE["window"], group=FLASH_LONG_SHAPE["G"])
     long_ms = _median_ms(lambda: flash_ops.flash_attention_fused(ql, kl, vl, **lkw), 10, flush, True)
@@ -896,6 +956,318 @@ def phase_flash_timing(launches: int, max_err: float) -> dict:
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def moe_inputs(s: dict, dtype: torch.dtype, seed: int = 0):
+    """x, w1, wg, w2 on the card: the harness's scales (x N(0,1), weights
+    0.1 N(0,1)) below d=256; the model's from there (unit-RMS rows, the
+    initializer's fan-in weights), where the harness's make the sums too
+    large for a fair fp32 bound.  Rows 2-3 of every expert are empty slots.
+    Drawn on the card from ``seed`` (the full-width calls take 0.8 G values)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, C, d, F = s["E"], s["C"], s["d"], s["F"]
+    model = d >= 256
+    f = lambda shape, scale: scale * torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    x = f((E, C, d), 1.0)
+    x[:, 2:4] = 0
+    w1, wg = f((E, d, F), d**-0.5 if model else 0.1), f((E, d, F), d**-0.5 if model else 0.1)
+    w2 = f((E, F, d), F**-0.5 if model else 0.1)
+    return tuple(t.to(dtype) for t in (x, w1, wg, w2))
+
+
+def _moe_bf16_check(got, args, label: str) -> tuple:
+    """A bf16 moe_gemm output against the plain version's fp32 output on the
+    same bf16 inputs: MOE_BF16_TOL elementwise and MOE_BF16_REL_L2.  Returns
+    (max_abs_err, relative L2 error)."""
+    want = moe_gemm_plain(*(t.float() for t in args))
+    err, rel = (got.float() - want).abs().max().item(), _rel_l2(got, want)
+    if not torch.allclose(got.float(), want, **MOE_BF16_TOL) or rel > MOE_BF16_REL_L2:
+        fail(f"moe_gemm {label} bf16 vs the plain version's fp32 output: max_abs_err {err:.3e} "
+             f"(atol/rtol {MOE_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {MOE_BF16_REL_L2})")
+    return err, rel
+
+
+def _moe_cut(x, w1, wg, w2):
+    """The kernel with the last MOE_CONTROL_COLS columns of F dropped: a
+    planted fault for the controls."""
+    F = w1.shape[2] - MOE_CONTROL_COLS
+    return moe_ops.moe_gemm_fused(x, w1[:, :, :F].contiguous(), wg[:, :, :F].contiguous(), w2[:, :F].contiguous())
+
+
+def phase_moe_parity() -> float:
+    """Returns the worst max_abs_err: fp32 against the plain version, bf16
+    against the plain version's fp32 output."""
+    worst = 0.0
+    cases = [(f"harness-{i}", s) for i, s in enumerate(MOE_HARNESS_SHAPES)]
+    cases += [("ragged", MOE_RAGGED_SHAPE), ("prefill", MOE_PREFILL_SHAPE), ("decode", MOE_DECODE_SHAPE)]
+    for label, s in cases:
+        for dname, dtype in DTYPES.items():
+            args = moe_inputs(s, dtype)
+            got = moe_ops.moe_gemm_fused(*args)
+            torch.cuda.synchronize()
+            want = moe_gemm_plain(*args)
+            if got.dtype != dtype or got.shape != args[0].shape:
+                fail(f"moe_gemm {label} {dname}: got {got.dtype} {tuple(got.shape)}")
+            if not torch.isfinite(got.float()).all():
+                fail(f"moe_gemm {label} {dname}: non-finite output")
+            if s["C"] > 3 and torch.count_nonzero(got[:, 2:4]).item():
+                fail(f"moe_gemm {label} {dname}: empty slots did not come back zero")
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), **TOL_TIGHT[dname]):
+                fail(f"moe_gemm kernel disagrees with its plain version at {label} {dname}: {err:.3e}")
+            line = f"[parity] moe_gemm {label} {s} {dname}: max_abs_err {err:.3e} (atol/rtol {TOL_TIGHT[dname]['atol']})"
+            if dname == "bfloat16":
+                err, rel = _moe_bf16_check(got, args, label)
+                line += (f"; vs the plain version's fp32 output max_abs_err {err:.3e} (atol/rtol "
+                         f"{MOE_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {MOE_BF16_REL_L2})")
+            print(line + " ok")
+            worst = max(worst, err)
+    # control: 64 columns of F dropped; the bound must see it
+    args = moe_inputs(MOE_PREFILL_SHAPE, torch.bfloat16)
+    short = _moe_cut(*args)
+    want = moe_gemm_plain(*(t.float() for t in args))
+    rel = _rel_l2(short, want)
+    if rel <= MOE_BF16_REL_L2:
+        fail(f"control: moe_gemm with {MOE_CONTROL_COLS} columns of F dropped passes the bf16 bound ({rel:.3e})")
+    print(f"[parity] moe_gemm control at prefill, the last {MOE_CONTROL_COLS} of F={MOE_PREFILL_SHAPE['F']} columns "
+          f"dropped: relative L2 {rel:.3e} > {MOE_BF16_REL_L2} (caught); caught by MOE_BF16_TOL: "
+          f"{not torch.allclose(short.float(), want, **MOE_BF16_TOL)}")
+    return worst
+
+
+def moe_config():
+    """qwen3-moe-30b-a3b at full width, its depth cut to MOE_LAYERS."""
+    return dataclasses.replace(get_config("qwen3-moe-30b-a3b"), num_layers=MOE_LAYERS, dtype="bfloat16")
+
+
+def _reset_launches():
+    for fn in (luong_ops.luong_attention_fused, lstm_ops.lstm_cell_fused, flash_ops.flash_attention_fused,
+               moe_ops.moe_gemm_fused):
+        fn.launches = 0
+
+
+def phase_moe_serve(params, cfg) -> tuple:
+    """The slice's main path: ServeEngine.generate on the MoE LM at (a)'s
+    shape.  Returns the (moe_gemm, flash_attn) launches of the run and the
+    dispatch buffer of the first MoE layer in a served decode step."""
+    V, L = cfg.vocab_size, cfg.num_layers
+    label, B, S, new = MOE_SERVE_RUN
+    plan = lm_plan(cfg)
+    engine = ServeEngine(cfg, params, plan=plan, device="cuda")
+    rng = np.random.default_rng(0)
+    engine.generate(rng.integers(3, V, size=(2, 256)), 2)  # warm-up: first cuBLAS calls, allocator
+    torch.cuda.synchronize()
+    prompts = rng.integers(3, V, size=(B, S))
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_moe, n_flash = moe_ops.moe_gemm_fused.launches, flash_ops.flash_attention_fused.launches
+    if n_flash != L or n_moe != 3 * L:
+        fail(f"moe serve ({label}): flash_attn launches {n_flash} != {L} (the prefill's), or moe_gemm launches "
+             f"{n_moe} != {3 * L} (the prefill's, the eager decode step's and the graph capture's)")
+    if tuple(out.shape) != (B, new) or out.min().item() < 0 or out.max().item() >= V:
+        fail(f"moe serve ({label}): bad output {tuple(out.shape)} in [{out.min().item()}, {out.max().item()}]")
+    print(f"[moe-serve] ({label}) [{cfg.name} x{L} layers | {plan.cache_policy} {plan.window} | static] {B} x {S} "
+          f"prompt tokens, {new} new tokens each, in {dt:.3f}s: prefill {engine.prefill_s * 1e3:.1f} ms "
+          f"({B * S / engine.prefill_s:.0f} prompt tok/s), decode {engine.decode_s * 1e3:.1f} ms for {new - 1} steps "
+          f"({B * (new - 1) / engine.decode_s:.1f} tok/s, {engine.decode_s / (new - 1) * 1e3:.2f} ms/step, CUDA "
+          f"graph); launches flash_attn {n_flash} = {L} layers x 1 prefill, moe_gemm {n_moe} = {L} layers x (prefill "
+          f"+ eager step + capture); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+          f"tokens[0][:8] {out[0, :8].tolist()}")
+    # where a prefill's and a decode step's device time goes
+    params_c = tfm.cast_params(engine.params, cfg)
+    tokens = torch.from_numpy(rng.integers(3, V, size=(B, S))).cuda()
+    _profile(lambda: engine._prefill(params_c, tokens), f"one MoE prefill of {B} x {S} tokens (bf16)")
+    logits, cache = engine._prefill(params_c, tokens)
+    cache = pad_cache(cfg, cache, S + new)
+    tok = logits.argmax(-1)
+
+    def decode8():
+        nonlocal cache, tok
+        for _ in range(8):
+            lg, cache = engine._step(params_c, tok, cache)
+            tok = lg.argmax(-1)
+
+    served = []
+
+    def record(kernel, *args):  # the first decode step's dispatch buffers, one a layer
+        if len(served) < L:
+            served.append(args[0].clone())
+        return kernel(*args)
+
+    with _moe_wrapped(record):
+        decode8()  # warm
+    occupied = [int((b != 0).any(-1).any(-1).sum().item()) for b in served]
+    print(f"[moe-serve] a served decode step's dispatch buffers {list(served[0].shape)}: experts with a row, layer by "
+          f"layer, {occupied} of {cfg.moe.num_experts} ({B} tokens x top-{cfg.moe.top_k} slots, colliding slots "
+          "dropped)")
+    _profile(decode8, f"8 eager MoE decode steps of {B} sequences at {S + 8}-{S + 16} cached tokens (bf16)")
+    # one replay of the captured decode step: its kernels are the graph's
+    moe_ops.moe_gemm_fused.launches = 0
+    graph, _tok_buf, _state = engine.capture_decode(params_c, tok, cache)
+    if moe_ops.moe_gemm_fused.launches != 2 * L:
+        fail(f"capture_decode: moe_gemm launches {moe_ops.moe_gemm_fused.launches} != {2 * L} (eager step + capture)")
+    events = _profile(graph.replay, "one replay of the captured MoE decode step (bf16)", top=8)
+    per_kernel = {e.key: e.count for e in events if "moe_mma_kernel" in e.key}
+    if len(per_kernel) != 2 or any(c != L for c in per_kernel.values()):
+        fail(f"the decode graph's replay ran the moe_gemm kernels {per_kernel}, not both {L} times")
+    print(f"[moe-serve] the decode graph's replay ran each moe_gemm kernel {L} times: "
+          f"{ {k[:60]: c for k, c in per_kernel.items()} }")
+    return n_moe, n_flash, served[0]
+
+
+@contextlib.contextmanager
+def _moe_wrapped(wrapper):
+    """Route the MoE blocks' moe_gemm calls through ``wrapper(kernel, x, w1,
+    wg, w2)`` for the duration (``models/moe.py`` looks the wrapper up by
+    name at each call).  Launches made meanwhile are comparison launches."""
+    kernel = moe_model.moe_gemm_fused
+    moe_model.moe_gemm_fused = lambda *args: wrapper(kernel, *args)
+    try:
+        yield
+    finally:
+        moe_model.moe_gemm_fused = kernel
+
+
+def phase_moe_model_paths(params, cfg):
+    """fp32: the kernel path (flash_attn, moe_gemm) and the plain path of the
+    MoE LM: last-position logits of a prefill, and 8 greedy tokens through
+    ServeEngine, graphed and eager."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(2, 512))).cuda()
+    logits = {sk: prefill_fn(cfg32, window=cfg.sliding_window, stage_kernel=sk)(params, prompts)[0]
+              for sk in ("cuda", "torch")}
+    err = (logits["cuda"] - logits["torch"]).abs().max().item()
+    if not torch.allclose(logits["cuda"], logits["torch"], **MOE_PATHS_TOL):
+        fail(f"MoE fp32 prefill logits: kernel path vs plain path max_abs_err {err:.3e}")
+    engines = {sk: ServeEngine(cfg32, params, plan=lm_plan(cfg32, sk), device="cuda") for sk in ("cuda", "torch")}
+    toks = {sk: e.generate(prompts, 8) for sk, e in engines.items()}
+    if not torch.equal(toks["cuda"], toks["torch"]):
+        fail(f"MoE greedy tokens differ between the kernel path and the plain path: {toks['cuda'].tolist()} vs "
+             f"{toks['torch'].tolist()}")
+    eager = engines["cuda"].generate(prompts, 8, cuda_graph=False)
+    if not torch.equal(eager, toks["cuda"]):
+        fail(f"MoE greedy tokens differ between the graphed and the eager decode: {toks['cuda'].tolist()} vs "
+             f"{eager.tolist()}")
+    print(f"[moe-model] fp32 prefill of 2 x 512 tokens, logits kernel vs plain max_abs_err {err:.3e} (atol/rtol "
+          f"{MOE_PATHS_TOL['atol']}; |logits| up to {logits['torch'].abs().max().item():.2f}); 8 greedy tokens equal "
+          f"on both paths and with the decode graphed or eager: {toks['cuda'][0].tolist()}")
+
+
+def phase_moe_bf16_paths(params, cfg):
+    """bf16 at (a)'s prompts: every moe_gemm call and every flash_attn call
+    (32 q heads on 4 kv heads, G=8, regrouped from the flat layout) of a
+    kernel-path prefill against its plain version's fp32 output on that
+    call's inputs, and the last-position logits of the kernel path against
+    the plain path's, with two controls that must miss the bound: 64 columns
+    of F dropped in every moe_gemm call, and every flash_attn call's flat
+    query head h paired with kv head h % KV instead of h // G."""
+    params_c = tfm.cast_params(params, cfg)
+    label, B, S, _ = MOE_SERVE_RUN
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).cuda()
+    calls, flash_calls = [], []
+
+    def checked(kernel, *args):
+        out = kernel(*args)
+        calls.append(_moe_bf16_check(out, args, f"({label}) layer {len(calls)}"))
+        return out
+
+    def flash_checked(kernel, q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        flash_calls.append(_flash_bf16_check(out, q, k, v, kw, f"({label}) MoE layer {len(flash_calls)}"))
+        return out
+
+    def regrouped(kernel, q, k, v, group, **kw):
+        KV = k.shape[0] // B
+        swap = lambda t, a, b: t.view(B, a, b, *t.shape[1:]).transpose(1, 2).reshape(t.shape)  # noqa: E731
+        return swap(kernel(swap(q, group, KV), k, v, group=group, **kw), KV, group)
+
+    run = lambda sk: prefill_fn(cfg, window=cfg.sliding_window, stage_kernel=sk)(params_c, tokens)[0]  # noqa: E731
+    with _moe_wrapped(checked), _flash_wrapped(flash_checked):
+        lk = run("cuda")
+    if len(calls) != cfg.num_layers or len(flash_calls) != cfg.num_layers:
+        fail(f"({label}) bf16 MoE prefill made {len(calls)} moe_gemm and {len(flash_calls)} flash_attn calls, not "
+             f"{cfg.num_layers} each")
+    lp = run("torch")
+    rel = _rel_l2(lk, lp)
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    if rel > LM_BF16_LOGITS_REL_L2:
+        fail(f"({label}) bf16 MoE prefill logits: kernel path vs plain path relative L2 {rel:.3e} > "
+             f"{LM_BF16_LOGITS_REL_L2}")
+    with _moe_wrapped(lambda kernel, *args: _moe_cut(*args)):
+        lf = run("cuda")
+    frel = _rel_l2(lf, lp)
+    if frel <= LM_BF16_LOGITS_REL_L2:
+        fail(f"control: moe_gemm with {MOE_CONTROL_COLS} columns of F dropped passes the logits bound ({frel:.3e})")
+    with _flash_wrapped(regrouped):
+        lg = run("cuda")
+    grel = _rel_l2(lg, lp)
+    if grel <= LM_BF16_LOGITS_REL_L2:
+        fail(f"control: flash_attn with the query heads regrouped wrongly passes the logits bound ({grel:.3e})")
+    print(f"[moe-bf16] ({label}) {B} x {S}: {len(calls)} moe_gemm calls vs the plain version's fp32 output, worst "
+          f"max_abs_err {max(c[0] for c in calls):.3e}, worst relative L2 {max(c[1] for c in calls):.3e} (bound "
+          f"{MOE_BF16_REL_L2}); {len(flash_calls)} flash_attn calls (G={cfg.num_heads // cfg.num_kv_heads}) likewise, "
+          f"worst max_abs_err {max(c[0] for c in flash_calls):.3e}, worst relative L2 "
+          f"{max(c[1] for c in flash_calls):.3e} (bound {FLASH_BF16_REL_L2}); logits kernel path vs plain path "
+          f"relative L2 {rel:.3e} (bound {LM_BF16_LOGITS_REL_L2}), argmax equal on {100 * agree:.0f}% of rows; "
+          f"controls: {MOE_CONTROL_COLS} columns of F dropped, relative L2 {frel:.3e}; query head h on kv head "
+          f"h % KV, relative L2 {grel:.3e} (both caught)")
+
+
+def _moe_bmm(x, w1, wg, w2):
+    """The yardstick: the same function as three torch.bmm calls and the gate,
+    all in x's dtype (used nowhere in the port)."""
+    return torch.bmm(torch.nn.functional.silu(torch.bmm(x, w1)) * torch.bmm(x, wg), w2)
+
+
+def phase_moe_timing(launches: int, max_err: float, decode_buf: torch.Tensor) -> dict:
+    """moe_gemm at the MoE serving run's prefill call and at a decode step's
+    call, bf16, model scales, L2 flushed: the kernel, its plain version and
+    the bmm yardstick.  The decode call runs twice: on a dense buffer (every
+    expert has a row) and on ``decode_buf``, a served step's buffer, where
+    most experts have none.  The bound counts the rows and the experts'
+    weights that the data needs (x and the output whole)."""
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for label, s, runs in (("prefill", MOE_PREFILL_SHAPE, 10), ("decode, dense buffer", MOE_DECODE_SHAPE, 30),
+                           ("decode, served buffer", MOE_DECODE_SHAPE, 30)):
+        args = moe_inputs(s, torch.bfloat16, seed=11)
+        if label == "decode, served buffer":
+            args = (decode_buf,) + args[1:]
+        kernel_ms = _median_ms(lambda: moe_ops.moe_gemm_fused(*args), runs, flush, True)
+        plain_ms = _median_ms(lambda: moe_gemm_plain(*args), max(3, runs // 3), flush, True)
+        bmm_ms = _median_ms(lambda: _moe_bmm(*args), runs, flush, True)
+        got = moe_ops.moe_gemm_fused(*args)
+        max_err = max(max_err, _moe_bf16_check(got, args, f"{label} timing inputs")[0])
+        bmm_err = (got.float() - _moe_bmm(*args).float()).abs().max().item()
+        E, C, d, F = s["E"], s["C"], s["d"], s["F"]
+        kept = (args[0] != 0).any(-1)  # [E, C]: the rows that hold a slot
+        n_rows, n_experts = int(kept.sum().item()), int(kept.any(-1).sum().item())
+        nbytes = 2 * (2 * E * C * d + 3 * n_experts * d * F)  # x and out; the weights of experts with a row: bf16
+        flops = 2 * n_rows * d * F * 3  # x.W1, x.Wg and h.W2 over the rows with a slot
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        rows[label] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        print(f"[timing] moe_gemm at the MoE {label} call E={E} C={C} d={d} F={F} bf16, {n_rows} rows with a slot "
+              f"in {n_experts} experts, median, L2 flushed: device time kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.bmm x 3 + gate (yardstick) {bmm_ms:.4f} ms (kernel vs bmm max_abs_err "
+              f"{bmm_err:.3e}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.4f} "
+              f"ms, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e3:.4f} ms); kernel at {flops / kernel_ms / 1e9:.2f} "
+              f"TFLOP/s, {nbytes / kernel_ms / 1e6:.1f} GB/s of the needed bytes")
+    kernel_ms, plain_ms, bound_ms, bound_by = rows["prefill"]
+    print(f"[timing] moe_gemm: {launches} launches in the MoE serving run; library_ms: none (no single PyTorch call "
+          "computes the gated expert FFN; the bmm yardstick is printed above)")
+    return {
+        "name": "moe_gemm", "route": "cuda", "source": MOE_SOURCE, "replaces": MOE_REPLACES,
+        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
 
 
@@ -938,7 +1310,28 @@ def main():
     phase_lm_model_paths(lm_params, lm_cfg)
     phase_lm_bf16_paths(lm_params, lm_cfg)
     del lm_params
-    records.append(phase_flash_timing(flash_launches, flash_err))
+    torch.cuda.empty_cache()
+    moe_err = phase_moe_parity()
+    moe_cfg = moe_config()
+    t0 = time.perf_counter()
+    moe_params = tfm.init_lm(0, moe_cfg, device="cuda")
+    n = sum(p.numel() for p in tree_leaves(moe_params))
+    qk_norm_scales = moe_cfg.num_layers * 2 * moe_cfg.head_dim
+    if n != moe_cfg.param_count() + qk_norm_scales:
+        fail(f"parameter count {n} != config's {moe_cfg.param_count()} + {qk_norm_scales} qk-norm scales")
+    m = moe_cfg.moe
+    print(f"[moe-serve] {moe_cfg.name}: {moe_cfg.num_layers} of 48 layers, d={moe_cfg.d_model}, {moe_cfg.num_heads} q / "
+          f"{moe_cfg.num_kv_heads} kv heads of {moe_cfg.head_dim}, {m.num_experts} experts top-{m.top_k} of width "
+          f"{m.d_ff_expert}, capacity factor {m.capacity_factor}, V={moe_cfg.vocab_size}, window "
+          f"{moe_cfg.sliding_window}: {n} parameters ({n * 4 / 1e9:.2f} GB fp32), initialized in "
+          f"{time.perf_counter() - t0:.1f}s")
+    moe_launches, moe_flash_launches, decode_buf = phase_moe_serve(moe_params, moe_cfg)
+    phase_moe_model_paths(moe_params, moe_cfg)
+    phase_moe_bf16_paths(moe_params, moe_cfg)
+    del moe_params
+    torch.cuda.empty_cache()
+    records.append(phase_flash_timing(flash_launches + moe_flash_launches, flash_err))
+    records.append(phase_moe_timing(moe_launches, moe_err, decode_buf))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())

@@ -8,11 +8,12 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+from repro_torch.configs.base import ModelConfig, MoEConfig, reduced  # noqa: F401
 
 # arch id -> module name in this package
 _REGISTRY = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "seq2seq-rnn": "seq2seq_rnn",
 }
 

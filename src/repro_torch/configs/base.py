@@ -1,18 +1,33 @@
 """Configuration dataclass for the ported architectures.
 
 The port's own copy of the fields of ``repro.configs.base.ModelConfig``
-that the ported families (dense decoders and the paper's seq2seq) read,
-with the same defaults, and of :func:`reduced`, the smoke-test variant.
-Fields of families that are not ported yet (MoE, Mamba, xLSTM, encoder
-stacks, frontends) are left out until their slice.
+that the ported families (dense and MoE decoders, and the paper's seq2seq)
+read, with the same defaults, of :class:`MoEConfig`, and of :func:`reduced`,
+the smoke-test variant.  Fields of families that are not ported yet (Mamba,
+xLSTM, encoder stacks, frontends) are left out until their slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
-FAMILIES = ("dense", "seq2seq")  # the families the port serves so far
+FAMILIES = ("dense", "moe", "seq2seq")  # the families the port serves so far
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration (Switch/Qwen3-MoE style)."""
+
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    # A layer uses MoE iff (layer_index % every) == offset.
+    every: int = 1
+    offset: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -49,6 +64,8 @@ class ModelConfig:
     attn_every: int = 1
     attn_offset: int = 0
 
+    moe: Optional[MoEConfig] = None
+
     # seq2seq (paper model) specifics
     input_feeding: bool = False
     emb_size: int = 0  # 0 -> d_model (paper uses 512 emb vs 1024 hidden)
@@ -79,16 +96,24 @@ class ModelConfig:
     def is_attn_layer(self, i: int) -> bool:
         return (i % self.attn_every) == self.attn_offset
 
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe is not None and (i % self.moe.every) == self.moe.offset
+
     @property
     def layer_group(self) -> int:
         """Period of the layer pattern; weights are stacked as
         [num_layers // layer_group, ...] per position in the group."""
-        return self.attn_every if self.attn_every > 1 else 1
+        period = 1
+        for every in (self.attn_every, self.moe.every if self.moe is not None else 1):
+            if every > 1:
+                period = period * every // math.gcd(period, every)
+        return period
 
     def param_count(self) -> int:
         """Analytic parameter count, ``repro.configs.base._param_count``'s
-        formula for the ported families.  For the dense family it leaves out
-        the qk-norm scales (2 * head_dim per layer), as that formula does."""
+        formula for the ported families.  For the dense and MoE families it
+        leaves out the qk-norm scales (2 * head_dim per layer), as that
+        formula does."""
         d, v = self.d_model, self.vocab_size
         n = v * self.emb_size + (0 if self.tie_embeddings else v * d)
         if self.family == "seq2seq":
@@ -104,8 +129,12 @@ class ModelConfig:
                 n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
                 if self.qkv_bias:
                     n += self.q_dim + 2 * self.kv_dim
-            if self.d_ff:
-                n += (3 if self.gated_mlp else 2) * d * self.d_ff
+            mult = 3 if self.gated_mlp else 2
+            if self.is_moe_layer(i):  # router + experts
+                m = self.moe
+                n += d * m.num_experts + m.num_experts * mult * d * m.d_ff_expert
+            elif self.d_ff:
+                n += mult * d * self.d_ff
             n += 2 * d  # norms
         return n + d  # final norm
 
@@ -132,6 +161,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         emb_size=min(cfg.emb_size, d_model),
         max_seq_len=4096,
     )
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2), d_ff_expert=min(cfg.moe.d_ff_expert, 128)
+        )
     if cfg.sliding_window:
         changes["sliding_window"] = 64
     return dataclasses.replace(cfg, **changes)

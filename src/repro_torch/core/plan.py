@@ -1,8 +1,8 @@
 """The port's execution plans: the meshless training half of
 ``repro.core.plan.ExecutionPlan``, and the subset of
 ``repro.core.plan.ServePlan`` that serves the seq2seq family under the
-``encdec_memory`` cache policy and the dense LM family under ``full_kv``
-and ``window``.
+``encdec_memory`` cache policy and the dense and MoE LM families under
+``full_kv`` and ``window``.
 
 :class:`ExecutionPlan` (training on one card):
 
@@ -23,8 +23,8 @@ queue 4, and the constructor rejects them as unknown keywords.
 * ``cache_policy``: ``encdec_memory`` (seq2seq: the encoder states S are
   the cached memory; decode is one decoder-LSTM step plus the Luong head),
   ``full_kv`` (an append-only KV cache) or ``window`` (a rolling KV buffer
-  of ``window`` slots); the last two serve the dense family through the
-  static ``ServeEngine``.
+  of ``window`` slots); the last two serve the dense and MoE families
+  through the static ``ServeEngine``.
 * ``max_slots`` is the slot-table size; the decode tick runs all slots and
   masks the inactive ones.
 * ``max_len`` is each slot's cache capacity (the source capacity for
@@ -36,8 +36,8 @@ queue 4, and the constructor rejects them as unknown keywords.
   admits from the queue whenever a slot frees.
 * ``window``: the rolling buffer's size (``cache_policy="window"`` only).
 * ``stage_kernel``: the kernel path, ``cuda`` (the hand-written kernels:
-  the Luong head, or the LM's prefill attention) or ``torch`` (the plain
-  math).
+  the Luong head, or the LM's prefill attention and MoE expert FFN) or
+  ``torch`` (the plain math).
 
 The ``recurrent`` policy and the paged, mesh and speculative fields of the
 JAX plan are not ported: :meth:`ServePlan.for_config` raises on them by
@@ -160,7 +160,7 @@ class ServePlan:
         unported = sorted(NOT_PORTED & set(overrides))
         if unported:
             raise NotImplementedError(f"ServePlan fields {unported} are not ported yet")
-        if cfg.family not in ("seq2seq", "dense"):
+        if cfg.family not in ("seq2seq", "dense", "moe"):
             raise NotImplementedError(f"serving the {cfg.family!r} family is not ported yet")
         if "cache_policy" not in overrides:
             if cfg.family == "seq2seq":

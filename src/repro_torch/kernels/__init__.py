@@ -31,6 +31,7 @@ LIBRARIES = {
     "luong_attn": ("luong_attn/csrc/luong_attn.cu",),
     "lstm_cell": ("lstm_cell/csrc/lstm_cell.cu",),
     "flash_attn": ("flash_attn/csrc/flash_attn.cu",),
+    "moe_gemm": ("moe_gemm/csrc/moe_gemm.cu",),
 }
 
 _loaded: dict = {}

@@ -1,0 +1,21 @@
+"""Plain PyTorch version of the grouped expert FFN, in the layout of
+``repro/kernels/moe_gemm/kernel.py``:
+
+    out[e] = (silu(x[e] @ w1[e]) * (x[e] @ wg[e])) @ w2[e]
+
+x [E, C, d] (the MoE dispatch buffer), w1/wg [E, d, F], w2 [E, F, d] ->
+[E, C, d] in x's dtype.  Every product and the gate run in fp32 and the
+result is cast once at the end, as in ``repro/kernels/moe_gemm/ref.py::
+moe_gemm_ref``.  ``ops.moe_gemm_fused`` runs it on CPU tensors, and
+``chip_smoke.py`` holds the CUDA kernel against it on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def moe_gemm_plain(x, w1, wg, w2):
+    xf = x.float()
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xf, w1.float()))
+    h = h * torch.einsum("ecd,edf->ecf", xf, wg.float())
+    return torch.einsum("ecf,efd->ecd", h, w2.float()).to(x.dtype)

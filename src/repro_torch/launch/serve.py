@@ -1,11 +1,12 @@
 """Serving launcher of the port, on the card: plan-driven continuous
 batching of the paper's seq2seq model, and the static-batch prefill +
-decode loop of the dense LM family.
+decode loop of the dense and MoE LM families.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seq2seq-rnn
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seq2seq-rnn --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --engine static
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --engine static --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --smoke --engine static --device cpu
 
 Weights are random, from the port's initializer and ``--seed``.  The
 continuous engine serves random sources of length ``prompt-len/2 ..
@@ -16,6 +17,10 @@ random prompts of ``--prompt-len`` tokens and prints
 ``[<name> | <cache policy> | static] generated (B, steps) in Xs (Y tok/s); prefill Zs``.
 The continuous engine's LM policies are not ported yet (ROADMAP.md queue 1
 item 5): ``--engine continuous`` with an LM arch exits with that message.
+An arch whose fp32 master weights and bf16 copy do not fit one card (the
+full ``qwen3-moe-30b-a3b``: 122 GB + 60 GB) exits before anything is
+allocated, with its reckoning: it needs the multi-device layout (ROADMAP.md
+queue 4).
 """
 from __future__ import annotations
 
@@ -29,8 +34,11 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.plan import ADMISSIONS, STAGE_KERNELS, ServePlan
 from repro_torch.models import seq2seq as s2s
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import resolve_device
 from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 from repro_torch.serve.sampling import make_sampler
+
+ONE_CARD_BYTES = 80 * 10**9  # an H100's device memory: the budget when serving on the host
 
 
 def main(argv=None):
@@ -95,8 +103,38 @@ def main(argv=None):
     return outs
 
 
+def _cast_count(cfg) -> int:
+    """The parameters ``transformer.cast_params`` copies into the compute
+    dtype on every generate: the attention, MLP and expert weights (not the
+    embeddings, the norms or the router)."""
+    d, n = cfg.d_model, cfg.param_count()
+    n -= cfg.vocab_size * cfg.emb_size + (0 if cfg.tie_embeddings else cfg.vocab_size * d)
+    n -= 2 * d * cfg.num_layers + d  # the norms
+    return n - sum(d * cfg.moe.num_experts for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
+
+
+def _check_weights_fit(cfg, device) -> None:
+    """Exit before any allocation when the fp32 master weights and the
+    compute-dtype copy that each generate casts do not fit the device: the
+    selected card's memory, or on the host one H100's, so that a host run
+    fails where the card's would and never tries such an allocation."""
+    n = cfg.param_count() + (cfg.num_layers * 2 * cfg.head_dim if cfg.qk_norm else 0)  # + the qk-norm scales
+    itemsize = torch.finfo(tfm.compute_dtype(cfg)).bits // 8
+    n_copy = _cast_count(cfg) if itemsize != 4 else 0  # cast_params to fp32 makes no copy
+    need = 4 * n + itemsize * n_copy
+    dev = resolve_device(device)
+    cap = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else ONE_CARD_BYTES
+    if need > cap:
+        raise SystemExit(f"--arch {cfg.name}: its fp32 master weights are {n:,} parameters x 4 B = {4 * n / 1e9:.0f} "
+                         f"GB and the {cfg.dtype} copy cast for each generate {n_copy:,} x {itemsize} B = "
+                         f"{itemsize * n_copy / 1e9:.0f} GB: {need / 1e9:.0f} GB, more than the "
+                         f"{'card' if dev.type == 'cuda' else 'one-card budget'}'s {cap / 1e9:.0f} GB; serving it "
+                         "needs the weights spread over several cards (ROADMAP.md queue 4)")
+
+
 def _serve_static(args, cfg, rng):
-    """The dense LM family through the static-batch ServeEngine."""
+    """The dense and MoE LM families through the static-batch ServeEngine."""
+    _check_weights_fit(cfg, args.device)
     overrides = dict(
         max_slots=args.max_slots or args.batch,
         max_len=args.max_len or max(64, args.prompt_len + args.steps),

@@ -1,5 +1,6 @@
-"""Decoder-only transformer of the dense family (port of the dense path of
-``repro/models/transformer.py``): prefill and decode.
+"""Decoder-only transformer of the dense and MoE families (port of the
+attention-block path of ``repro/models/transformer.py``): prefill and
+decode.
 
 Layers are grouped by the architecture's block pattern
 (``cfg.layer_group``); each position in the group has its weights stacked
@@ -11,8 +12,11 @@ Modes:
   decode   one token (or a chunk) against the carried caches, which it
            updates in place
 
-Training of the LM families, the MoE/SSM/xLSTM blocks, cross-attention,
-frontends and the mesh fields of ``RunCtx`` are not ported yet.
+A block's FFN is the dense MLP or, on the layers ``cfg.is_moe_layer``
+names, the mixture of experts (``models/moe.py``, meshless global
+dispatch).  Training of the LM families, the SSM/xLSTM blocks,
+cross-attention, frontends and the mesh fields of ``RunCtx`` (and with them
+the expert-parallel MoE path) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import common, mlp
+from repro_torch.models import common, mlp, moe
 from repro_torch.models.common import Initializer, resolve_device, tree_map
 
 MODES = ("prefill", "decode")
@@ -33,9 +37,11 @@ class RunCtx(NamedTuple):
     window: Optional[int] = None  # sliding window
     q_chunk: int = 1024
     kv_chunk: int = 1024
-    # prefill attention: "cuda" = kernels/flash_attn (the CUDA kernel on the
-    # card, its plain version on the host), "torch" = chunked_attention
-    attn_kernel: str = "cuda"
+    # "cuda": prefill attention on kernels/flash_attn and the MoE blocks'
+    # expert FFN on kernels/moe_gemm (each the CUDA kernel on the card, its
+    # plain version on the host); "torch": chunked_attention and
+    # moe.expert_ffn
+    kernel: str = "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -44,8 +50,9 @@ class RunCtx(NamedTuple):
 
 
 def block_pattern(cfg: ModelConfig) -> list:
-    """Kinds for each position in a layer group; the dense family has only
-    'attn' blocks (the SSM and xLSTM kinds come with their families)."""
+    """Kinds for each position in a layer group; the dense and MoE families
+    have only 'attn' blocks (the SSM and xLSTM kinds come with their
+    families)."""
     kinds = []
     for pos in range(cfg.layer_group):
         if not cfg.is_attn_layer(pos):
@@ -54,7 +61,7 @@ def block_pattern(cfg: ModelConfig) -> list:
     return kinds
 
 
-def init_block(ini: Initializer, path: str, cfg: ModelConfig, kind: str) -> dict:
+def init_block(ini: Initializer, path: str, cfg: ModelConfig, kind: str, use_moe: bool = False) -> dict:
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     p = {
@@ -62,7 +69,9 @@ def init_block(ini: Initializer, path: str, cfg: ModelConfig, kind: str) -> dict
         "attn": attn.init_attention(ini, path + ".attn", cfg),
         "norm2": common.init_norm(ini, path + ".n2", cfg.d_model, cfg.norm),
     }
-    if cfg.d_ff:
+    if use_moe:
+        p["moe"] = moe.init_moe(ini, path + ".moe", cfg.d_model, cfg.moe, cfg.gated_mlp)
+    elif cfg.d_ff:
         p["mlp"] = mlp.init_mlp(ini, path + ".mlp", cfg.d_model, cfg.d_ff, cfg.gated_mlp)
     return p
 
@@ -70,7 +79,7 @@ def init_block(ini: Initializer, path: str, cfg: ModelConfig, kind: str) -> dict
 def init_lm(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     """Random fp32 parameters with the JAX package's names, layouts and
     scales; blocks stacked [G, ...] per position in the layer group."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"the {cfg.family!r} family's LM is not ported yet")
     if cfg.learned_pos_emb:
         raise NotImplementedError("learned position embeddings come with the audio family")
@@ -79,7 +88,8 @@ def init_lm(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     params: dict = {"embed": common.init_embedding(ini, "embed", cfg.vocab_size, cfg.emb_size)}
     blocks = []
     for pos, kind in enumerate(block_pattern(cfg)):
-        trees = [init_block(ini, f"blk.g{g}.p{pos}", cfg, kind) for g in range(G)]
+        use_moe = cfg.is_moe_layer(pos)
+        trees = [init_block(ini, f"blk.g{g}.p{pos}", cfg, kind, use_moe) for g in range(G)]
         blocks.append(tree_map(lambda *xs: torch.stack(xs), *trees))
         del trees
     params["blocks"] = blocks
@@ -96,16 +106,17 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def cast_params(params: dict, cfg: ModelConfig) -> dict:
-    """The parameters as the forward reads them: the attention and MLP
-    weights cast once to the compute dtype; the norm scales (qk-norm too),
-    the embedding table and the LM head stay fp32, as the model reads them
-    in fp32.  The model code's own casts then become no-ops, so the numbers
-    are those of the fp32 masters cast at each use."""
+    """The parameters as the forward reads them: the attention, MLP and
+    expert weights cast once to the compute dtype; the norm scales (qk-norm
+    too), the MoE router, the embedding table and the LM head stay fp32, as
+    the model reads them in fp32.  The model code's own casts then become
+    no-ops, so the numbers are those of the fp32 masters cast at each use."""
     dt = compute_dtype(cfg)
-    keep = ("q_norm", "k_norm")
+    keep = ("q_norm", "k_norm", "router")
     out = dict(params)
     out["blocks"] = [
-        {name: ({k: (a if k in keep else a.to(dt)) for k, a in sub.items()} if name in ("attn", "mlp") else sub)
+        {name: ({k: (a if k in keep else a.to(dt)) for k, a in sub.items()} if name in ("attn", "mlp", "moe")
+                else sub)
          for name, sub in blk.items()}
         for blk in params["blocks"]
     ]
@@ -137,7 +148,7 @@ def _self_attention(p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, leng
             o = attn.decode_attention(q, ck, cv, length, rolling=rolling)
         return attn.output_proj(p, cfg, o), (ck, cv)
     o = attn.attend(q, k, v, causal=True, window=ctx.window, q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk,
-                    kernel=ctx.attn_kernel)
+                    kernel=ctx.kernel)
     y = attn.output_proj(p, cfg, o)
     W = ctx.window
     if W is not None and k.shape[1] > W:  # keep only the rolling window:
@@ -147,22 +158,29 @@ def _self_attention(p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, leng
     return y, (k, v)
 
 
-def _ffn(p_block: dict, cfg: ModelConfig, x):
+def _ffn(p_block: dict, cfg: ModelConfig, x, ctx: RunCtx):
+    """Dense MLP or MoE.  Returns (y, aux_loss)."""
     if "mlp" in p_block:
-        return mlp.apply_mlp(p_block["mlp"], x, cfg.act, cfg.gated_mlp)
-    return torch.zeros_like(x)
+        return mlp.apply_mlp(p_block["mlp"], x, cfg.act, cfg.gated_mlp), 0.0
+    if "moe" not in p_block:
+        return torch.zeros_like(x), 0.0
+    B, S, d = x.shape
+    y, aux = moe.apply_moe(p_block["moe"], x.reshape(B * S, d), cfg.moe, cfg.act, kernel=ctx.kernel)
+    return y.reshape(B, S, d), aux
 
 
 def apply_block(kind: str, p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, length=None):
     """Returns (x, new_cache); ``rope`` is :func:`common.rope_tables` of the
-    tokens' positions."""
+    tokens' positions.  The MoE load-balance loss is dropped: only training
+    reads it, and the LM's training is not ported yet."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = common.apply_norm(p["norm1"], x, cfg.norm)
     y, new_cache = _self_attention(p["attn"], cfg, h, ctx, cache, rope, length)
     x = x + y
     h2 = common.apply_norm(p["norm2"], x, cfg.norm)
-    return x + _ffn(p, cfg, h2), new_cache
+    y2, _aux = _ffn(p, cfg, h2, ctx)
+    return x + y2, new_cache
 
 
 # ---------------------------------------------------------------------------

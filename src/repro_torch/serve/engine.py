@@ -1,10 +1,12 @@
 """Serving engines (port of ``repro/serve/engine.py`` without its paged,
 speculative and mesh branches).
 
-``ServeEngine`` is the static-batch loop of the dense LM family: one
-prefill over the padded batch (``prefill_fn``; its attention runs on the
-``flash_attn`` kernel on the card), the caches padded to a capacity bucket
-(``pad_cache``), then one decode step per new token (``serve_step_fn``).
+``ServeEngine`` is the static-batch loop of the dense and MoE LM families:
+one prefill over the padded batch (``prefill_fn``; its attention runs on the
+``flash_attn`` kernel on the card, and each MoE layer's expert FFN on the
+``moe_gemm`` kernel), the caches padded to a capacity bucket
+(``pad_cache``), then one decode step per new token (``serve_step_fn``;
+the expert FFN on ``moe_gemm`` there too).
 
 ``ContinuousEngine`` is the continuous-batching engine of the
 ``encdec_memory`` cache policy (the seq2seq family; the LM policies of the
@@ -39,10 +41,12 @@ from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.serve.sampling import greedy
 
 
-def serve_step_fn(cfg: ModelConfig, *, window: Optional[int] = None):
+def serve_step_fn(cfg: ModelConfig, *, window: Optional[int] = None, stage_kernel: str = "cuda"):
     """One decode step: (params, token [B], cache) -> (next logits [B, V],
-    cache); the cache's entries are updated in place."""
-    ctx = tfm.RunCtx(mode="decode", window=window)
+    cache); the cache's entries are updated in place.  ``stage_kernel``
+    picks the MoE expert FFN: ``cuda`` (the moe_gemm kernel) or ``torch``
+    (``moe.expert_ffn``)."""
+    ctx = tfm.RunCtx(mode="decode", window=window, kernel=stage_kernel)
 
     def step(params, token, cache):
         return tfm.forward_decode(params, cfg, token, cache, ctx=ctx)
@@ -50,11 +54,12 @@ def serve_step_fn(cfg: ModelConfig, *, window: Optional[int] = None):
     return step
 
 
-def prefill_fn(cfg: ModelConfig, *, window: Optional[int] = None, q_chunk: int = 128, attn_kernel: str = "cuda"):
+def prefill_fn(cfg: ModelConfig, *, window: Optional[int] = None, q_chunk: int = 128, stage_kernel: str = "cuda"):
     """The prefill: (params, tokens [B, S]) -> (logits at the last position
-    [B, V], cache).  ``attn_kernel`` picks the attention: ``cuda`` (the
-    flash_attn kernel) or ``torch`` (the plain chunked attention)."""
-    ctx = tfm.RunCtx(mode="prefill", window=window, q_chunk=q_chunk, attn_kernel=attn_kernel)
+    [B, V], cache).  ``stage_kernel`` picks the kernels: ``cuda`` (the
+    flash_attn kernel for the attention, the moe_gemm kernel for the MoE
+    expert FFN) or ``torch`` (the plain chunked attention, ``moe.expert_ffn``)."""
+    ctx = tfm.RunCtx(mode="prefill", window=window, q_chunk=q_chunk, kernel=stage_kernel)
 
     def prefill(params, tokens):
         return tfm.forward_prefill(params, cfg, tokens, ctx=ctx)
@@ -76,19 +81,21 @@ def pad_cache(cfg: ModelConfig, cache: tfm.LMCache, capacity: int) -> tfm.LMCach
 
 
 class ServeEngine:
-    """Static-batch prefill + decode loop of the dense LM family.
+    """Static-batch prefill + decode loop of the dense and MoE LM families.
 
     A :class:`ServePlan` (``full_kv`` or ``window``) replaces the loose
     keywords: its window, ``max_len``, ``prefill_chunk`` (the capacity
-    bucket) and ``stage_kernel`` (the prefill attention's kernel).  The fp32
+    bucket) and ``stage_kernel`` (the kernels of both the prefill attention
+    and the MoE expert FFN).  The fp32
     master weights are moved to ``device`` once and cast to the compute
     dtype once per :meth:`generate` call, not per token.  ``prefill_s`` and
     ``decode_s`` hold the last call's prefill (first token included) and
     decode wall times, each ended by a synchronise on the card.
 
-    Greedy decode on the card replays one CUDA graph per token: the first
-    step runs eagerly (it also warms the allocator and cuBLAS), the second is
-    captured, and every later one is a replay.  The eager step issues a few
+    Greedy decode of three or more tokens on the card replays one CUDA graph
+    per token: the first decode step runs eagerly (it also warms the
+    allocator and cuBLAS), the second is captured (:meth:`capture_decode`),
+    and it and every later one are replays.  The eager step issues a few
     thousand small launches, which the host cannot feed as fast as the card
     runs them; the graph launches them as one.  ``cuda_graph=False`` runs
     every step eagerly, which is what the CPU and sampled decoding do.
@@ -102,21 +109,21 @@ class ServeEngine:
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, *, plan: Optional[ServePlan] = None,
-                 window: Optional[int] = None, max_len: int = 512, pad_to: int = 32, attn_kernel: str = "cuda",
+                 window: Optional[int] = None, max_len: int = 512, pad_to: int = 32, stage_kernel: str = "cuda",
                  device="cuda"):
-        if cfg.family != "dense":
-            raise ValueError(f"ServeEngine serves the dense LM family, not {cfg.family!r}")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"ServeEngine serves the dense LM family and the moe family, not {cfg.family!r}")
         if plan is not None:
             plan.validate_for(cfg)
-            window, max_len, pad_to, attn_kernel = plan.window, plan.max_len, plan.prefill_chunk, plan.stage_kernel
+            window, max_len, pad_to, stage_kernel = plan.window, plan.max_len, plan.prefill_chunk, plan.stage_kernel
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = tree_map(lambda a: a.to(self.device), params)
         self.window = window
         self.max_len = max_len
         self.pad_to = max(1, pad_to)
-        self._prefill = prefill_fn(cfg, window=window, attn_kernel=attn_kernel)
-        self._step = serve_step_fn(cfg, window=window)
+        self._prefill = prefill_fn(cfg, window=window, stage_kernel=stage_kernel)
+        self._step = serve_step_fn(cfg, window=window, stage_kernel=stage_kernel)
         self.prefill_s = self.decode_s = 0.0
 
     def _sync(self):
@@ -134,10 +141,14 @@ class ServeEngine:
                              f"(max_len={self.max_len}, window={self.window})")
         return cap
 
-    def _decode_graphed(self, params, tok: torch.Tensor, cache: tfm.LMCache, n: int) -> list:
-        """``n`` greedy decode steps from ``tok``: one eager, then one CUDA
-        graph captured and replayed.  The token, the length and the cache
-        live in fixed buffers that the step updates in place."""
+    def capture_decode(self, params, tok: torch.Tensor, cache: tfm.LMCache):
+        """One eager greedy decode step from ``tok``, then a CUDA graph of the
+        next step captured (not run).  The token, the length and the cache
+        live in fixed buffers that the step updates in place: each
+        ``graph.replay()`` takes one more greedy step.  Returns (graph, token
+        buffer, cache state); the buffer holds the eager step's token.  The
+        graph holds raw pointers only: the caller keeps the buffer, the state
+        and ``cache`` alive while it replays."""
         tok_buf = tok.clone()
         state = tfm.LMCache(entries=cache.entries, length=cache.length.clone())
 
@@ -152,14 +163,19 @@ class ServeEngine:
         with torch.cuda.stream(side):  # warm-up off the capture's stream, as torch.cuda.graph asks
             step()
         main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        return graph, tok_buf, state
+
+    def _decode_graphed(self, params, tok: torch.Tensor, cache: tfm.LMCache, n: int) -> list:
+        """``n`` greedy decode steps from ``tok``: one eager, then replays of
+        the captured graph (:meth:`capture_decode`)."""
+        graph, tok_buf, _state = self.capture_decode(params, tok, cache)
         out = [tok_buf.clone()]
-        if n > 1:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                step()
-            for _ in range(n - 1):
-                graph.replay()
-                out.append(tok_buf.clone())
+        for _ in range(n - 1):
+            graph.replay()
+            out.append(tok_buf.clone())
         return out
 
     def generate(self, prompt_tokens, steps: int, *, sampler=greedy,
@@ -176,7 +192,7 @@ class ServeEngine:
         self._sync()
         t1 = time.perf_counter()
         out = [tok]
-        if cuda_graph and sampler is greedy and self.device.type == "cuda" and steps > 1:
+        if cuda_graph and sampler is greedy and self.device.type == "cuda" and steps > 2:
             out += self._decode_graphed(params, tok, cache, steps - 1)
         else:
             for _ in range(steps - 1):

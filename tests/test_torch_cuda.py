@@ -19,6 +19,8 @@ from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
 from repro_torch.kernels.lstm_cell.ref import lstm_cell_ref  # noqa: E402
 from repro_torch.kernels.luong_attn import ops  # noqa: E402
 from repro_torch.kernels.luong_attn.ref import luong_attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_plain  # noqa: E402
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -229,5 +231,87 @@ def test_graphed_decode_matches_eager(cuda):
     for S, steps in ((40, 12), (50, 24), (100, 8)):
         prompts = rng.integers(3, cfg.vocab_size, size=(2, S))
         graphed = engine.generate(prompts, steps)
+        eager = engine.generate(prompts, steps, cuda_graph=False)
+        assert graphed.tolist() == eager.tolist(), (S, steps)
+
+
+# kernel_harness.py's moe_gemm shapes (blocks dropped; the last runs the FMA
+# kernel in bf16, as F=36 is not a multiple of 8), a shape whose every tile is
+# ragged on the tensor-core path, one with several K tiles around the copy
+# ring, and the serving decode step's per-expert call (C=1) on 8 experts
+MOE_SHAPES = [
+    dict(E=4, C=16, d=32, F=64), dict(E=2, C=8, d=64, F=96), dict(E=8, C=32, d=16, F=16),
+    dict(E=1, C=1, d=16, F=16), dict(E=3, C=10, d=24, F=36),
+    dict(E=2, C=70, d=40, F=72), dict(E=4, C=130, d=256, F=192), dict(E=8, C=1, d=2048, F=768),
+]
+# bf16 against the plain version's fp32 output on the same bf16 inputs: only
+# the kernel's own rounding is left (h and the output in bf16)
+MOE_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+MOE_BF16_REL_L2 = 1e-2
+
+
+def _moe_inputs(s, dtype, seed=0):
+    """x, w1, wg, w2 on the card: the harness's scales (x N(0,1), weights
+    0.1 N(0,1)) below d=256, the model's (unit-RMS rows, fan-in weights)
+    from there; rows 2-3 of every expert are empty slots (zeros)."""
+    rng = np.random.default_rng(seed)
+    E, C, d, F = s["E"], s["C"], s["d"], s["F"]
+    model = d >= 256
+    f = lambda shape, scale: torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()  # noqa: E731
+    x = f((E, C, d), 1.0)
+    x[:, 2:4] = 0
+    w1, wg = f((E, d, F), d**-0.5 if model else 0.1), f((E, d, F), d**-0.5 if model else 0.1)
+    w2 = f((E, F, d), F**-0.5 if model else 0.1)
+    return tuple(t.to(dtype) for t in (x, w1, wg, w2))
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_moe_gemm_kernel_matches_plain(cuda, dname):
+    """fp32 runs the FMA kernels (TOL_TIGHT); bf16 the tensor-core kernels
+    where d and F are multiples of 8, held against the plain version's bf16
+    output (TOL_TIGHT) and its fp32 output (MOE_BF16_TOL, relative L2).
+    Empty slots come back exactly zero."""
+    for s in MOE_SHAPES:
+        args = _moe_inputs(s, TORCH_DT[dname])
+        before = moe_ops.moe_gemm_fused.launches
+        got = moe_ops.moe_gemm_fused(*args)
+        torch.cuda.synchronize()
+        assert moe_ops.moe_gemm_fused.launches == before + 1
+        assert got.dtype == args[0].dtype and got.shape == args[0].shape
+        if s["C"] > 3:
+            assert torch.count_nonzero(got[:, 2:4]) == 0, s
+        want = moe_gemm_plain(*args)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL_TIGHT[dname],
+                                   err_msg=f"{s} {dname}")
+        if dname == "bfloat16":
+            want32 = moe_gemm_plain(*(t.float() for t in args))
+            np.testing.assert_allclose(got.float().cpu().numpy(), want32.cpu().numpy(), **MOE_BF16_TOL,
+                                       err_msg=f"{s} bf16 vs the plain version's fp32 output")
+            rel = ((got.float() - want32).norm() / want32.norm()).item()
+            assert rel <= MOE_BF16_REL_L2, (s, rel)
+
+
+def test_graphed_moe_decode_matches_eager(cuda):
+    """The MoE decode step captures into ServeEngine's CUDA graph: the same
+    tokens as the eager steps, fp32, on both sides of the window; a graphed
+    generate launches moe_gemm once per layer in the prefill, the eager step
+    and the capture (the replays launch it from the graph)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import ServePlan
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    cfg = dataclasses.replace(cfg, num_kv_heads=2, dtype="float32",
+                              moe=dataclasses.replace(cfg.moe, num_experts=8, top_k=2))
+    engine = ServeEngine(cfg, tfm.init_lm(0, cfg, device="cuda"), plan=ServePlan.for_config(cfg, max_len=64))
+    rng = np.random.default_rng(0)
+    for S, steps in ((40, 12), (50, 24), (100, 8)):
+        prompts = rng.integers(3, cfg.vocab_size, size=(2, S))
+        moe_ops.moe_gemm_fused.launches = 0
+        graphed = engine.generate(prompts, steps)
+        assert moe_ops.moe_gemm_fused.launches == 3 * cfg.num_layers
         eager = engine.generate(prompts, steps, cuda_graph=False)
         assert graphed.tolist() == eager.tolist(), (S, steps)

@@ -1,8 +1,9 @@
 """Boundaries of the port: ``repro_torch`` and ``chip_smoke.py`` import
 nothing of JAX or of the JAX package; entry points run on the card unless
-asked for the CPU; the luong and flash_attn wrappers' CPU paths are their
-plain versions; the weight bridge moves every leaf of a JAX param tree (the
-seq2seq and the LM trees) and reads the JAX package's checkpoints.
+asked for the CPU; the luong, flash_attn and moe_gemm wrappers' CPU paths
+are their plain versions, and a CUDA tensor never reaches a plain version;
+the weight bridge moves every leaf of a JAX param tree (the seq2seq, the
+dense LM and the MoE LM trees) and reads the JAX package's checkpoints.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def test_port_imports_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORTS], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 38  # every module of the package was imported, the LM slice's too
+    assert int(res.stdout.split()[-1]) >= 43  # every module of the package was imported, the MoE slice's too
 
 
 def test_entry_points_default_to_cuda():
@@ -188,5 +189,64 @@ def test_bridge_round_trips_lm_tree():
     attn = port["blocks"][0]["attn"]
     assert tuple(attn["wq"].shape) == (2, 256, 4, 1, 64) and tuple(attn["wo"].shape) == (2, 4, 1, 64, 256)
     assert tuple(attn["q_norm"].shape) == (2, 64) and "lm_head" not in port
+    back = jax.tree_util.tree_map(lambda t: t.numpy(), port, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    _assert_same_tree(back, port)
+
+
+def test_moe_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without CUDA")
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.init_lm(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, tfm.init_lm(0, cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--engine", "static"])
+
+
+def test_moe_gemm_wrapper_cpu_path_is_plain_version(monkeypatch):
+    """CPU tensors take the plain version without a launch; a CUDA tensor
+    goes to the kernel's launch and never to the plain version; any other
+    device raises."""
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_plain
+
+    g = torch.Generator().manual_seed(0)
+    E, C, d, F = 3, 10, 24, 36
+    x, w1, wg, w2 = (torch.randn(s, generator=g) for s in ((E, C, d), (E, d, F), (E, d, F), (E, F, d)))
+    before = moe_ops.moe_gemm_fused.launches
+    assert torch.equal(moe_ops.moe_gemm_fused(x, w1, wg, w2), moe_gemm_plain(x, w1, wg, w2))
+    assert moe_ops.moe_gemm_fused.launches == before
+
+    class OnTheCard:  # all the wrapper reads before it dispatches
+        device = torch.device("cuda", 0)
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(moe_ops, "moe_gemm_plain", refuse)
+    monkeypatch.setattr(moe_ops, "_launch", lambda *args: "launched")
+    assert moe_ops.moe_gemm_fused(OnTheCard(), w1, wg, w2) == "launched"
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        moe_ops.moe_gemm_fused(x.to("meta"), w1, wg, w2)
+
+
+def test_bridge_round_trips_moe_tree():
+    """Every leaf of the JAX MoE LM tree: the [G, E, d, F] / [G, E, F, d]
+    expert stacks, the [G, d, E] router, the flat attention layout and the
+    untied head."""
+    jcfg = jax_get_config("qwen3-moe-30b-a3b", smoke=True)
+    tree = jax.device_get(jtfm.init_lm(jax.random.key(0), jcfg)[0])
+    port = bridge.params_from_jax(tree, device="cpu")
+    _assert_same_tree(tree, port)
+    moe = port["blocks"][0]["moe"]
+    assert tuple(moe["w1"].shape) == tuple(moe["wg"].shape) == (2, 4, 256, 128)
+    assert tuple(moe["w2"].shape) == (2, 4, 128, 256) and tuple(moe["router"].shape) == (2, 256, 4)
+    assert "lm_head" in port and "mlp" not in port["blocks"][0]
     back = jax.tree_util.tree_map(lambda t: t.numpy(), port, is_leaf=lambda x: isinstance(x, torch.Tensor))
     _assert_same_tree(back, port)

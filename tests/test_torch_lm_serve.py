@@ -6,7 +6,7 @@ layout: the smoke config alone has 4/4 heads and would never test the kv
 broadcast), fp32, its weights made by the JAX package and bridged.  Prompts
 fall on both sides of its window of 64.  ``forward_prefill`` logits and
 caches must match JAX's within 1e-4 on both prefill attention paths
-(``attn_kernel`` ``cuda``: the flash wrapper, here its plain version;
+(``RunCtx.kernel`` ``cuda``: the flash wrapper, here its plain version;
 ``torch``: the chunked attention), ``forward_decode`` too, and
 ``ServeEngine.generate`` must give JAX's greedy tokens exactly.
 """
@@ -79,7 +79,7 @@ def test_forward_prefill_matches_jax(S, window, kernel):
     window's slot order when S exceeds it)."""
     _, _, cfg, params = _model()
     want_logits, want_cache = _jax_prefill(S, window)
-    ctx = tfm.RunCtx(mode="prefill", window=window, q_chunk=128, attn_kernel=kernel)
+    ctx = tfm.RunCtx(mode="prefill", window=window, q_chunk=128, kernel=kernel)
     logits, cache = tfm.forward_prefill(params, cfg, torch.from_numpy(_tokens(2, S, S)), ctx=ctx)
     np.testing.assert_allclose(logits.numpy(), want_logits, **TOL)
     assert cache.length == int(want_cache.length) == S
