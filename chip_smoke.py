@@ -12,9 +12,12 @@ Phases, each printed as it runs; any failure exits nonzero:
    one ``nvcc`` per kernel, all started together;
 3. kernel vs plain, forward: the ``luong_attn`` kernel at the decode shape,
    the training step's shape (2048 rows), a ragged shape, the
-   ``tests/kernel_harness.py`` shapes and an all-masked row; the ``lstm_cell`` kernel at the harness's shapes, a shape
+   ``tests/kernel_harness.py`` shapes and an all-masked row; the ``lstm_cell`` kernels at the harness's shapes, a shape
    of three ragged row tiles and the model's two full-width shapes, fp32 and
-   bf16, the model's mixed feed, and a cross-check against ``torch.lstm_cell``;
+   bf16, the old mixed feed (fp32 weights: the FMA kernel), the model's feed
+   (x and weights bf16, h and c fp32: the tensor-core kernel, held to
+   LSTM_MMA_TOL, with a control that rounds h to bf16 and must miss it), and a
+   cross-check against ``torch.lstm_cell``;
 4. kernel vs plain, backward: fp32 grads through each kernel's
    ``autograd.Function`` against autograd through its plain version, at the
    full-width training shapes (and the Luong forward output beside them);
@@ -25,12 +28,15 @@ Phases, each printed as it runs; any failure exits nonzero:
    and a 16-step ``greedy_decode``;
 7. training: the full-width model through ``Trainer`` (bf16 compute over fp32
    masters, dropout 0.3, Adam, clip 5.0) on ``MTBatchIterator`` batches of 64,
-   8 steps; ``lstm_cell`` launches layers x (M + N) and ``luong_attn`` once
-   per step; then one step under ``torch.profiler``;
+   8 steps; ``lstm_cell`` launches layers x (M + N), every one on the
+   tensor-core kernel, and ``luong_attn`` once per step; then one step under
+   ``torch.profiler``;
 8. kernel path vs plain path in one fp32 training step: loss and every grad
    leaf;
 9. timing with CUDA events: ``luong_attn`` at the decode shape (and at the
-   training shape), ``lstm_cell`` at the training shape with the model's feed;
+   training shape), ``lstm_cell`` at the training shape on the model's feed
+   (L2 flushed and warm; and at In=512), beside the fp32-masters feed's FMA
+   kernel, the plain version and ``torch.lstm_cell`` in bf16;
 10. ``flash_attn`` kernel vs plain, fp32 (the FMA kernel) and bf16 (the
     tensor-core kernel; the FMA kernel at D=8): the ``tests/kernel_harness.py``
     shapes, the full-width prefill's per-layer call (B=4, S=2048, 16 q heads
@@ -321,37 +327,72 @@ def lstm_inputs(s: dict, dtypes, seed: int = 0, model_scales: bool = False):
     return tuple(t.to(dt) for t, dt in zip((x, h, c, wx, wh, b), dtypes))
 
 
-MODEL_FEED = (torch.bfloat16,) + (torch.float32,) * 5  # x in the compute dtype; h, c and the masters fp32
+MODEL_FEED = (torch.bfloat16,) + (torch.float32,) * 5  # the old mixed feed: x bf16; h, c and the masters fp32
+# the model's feed: x and the weights cast to bf16 once per layer call; h and c fp32 carries
+BF16W_FEED = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16, torch.bfloat16, torch.bfloat16)
+# The tensor-core kernel against the plain version on the same inputs: both form exact bf16 x bf16
+# products in fp32; the kernel keeps h as h_hi + h_lo (to about 2^-17 of itself) and sums in another
+# order, so the two agree to a few 1e-6 at the model's scales.  1e-4 leaves room for that and is
+# 10-30 times below what rounding h to bf16 alone costs (the control), so the check tells them apart.
+LSTM_MMA_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _lstm_check(label, fname, args, tol, *, path=None):
+    """One kernel call against the plain version on the same inputs; fails
+    past ``tol`` or, with ``path``, unless that kernel ran.  Returns the error."""
+    before = {p: getattr(lstm_ops.lstm_cell_fused, f"{p}_launches") for p in ("mma", "fma")}
+    got = lstm_ops.lstm_cell_fused(*args)
+    torch.cuda.synchronize()
+    ran = [p for p in before if getattr(lstm_ops.lstm_cell_fused, f"{p}_launches") != before[p]]
+    if path is not None and ran != [path]:
+        fail(f"lstm_cell {label} {fname}: ran {ran}, expected the {path} kernel")
+    want = lstm_cell_ref(*args)
+    err = 0.0
+    for g, w, like in zip(got, want, args[1:3]):
+        if g.dtype != like.dtype or g.shape != like.shape:
+            fail(f"lstm_cell {label} {fname}: got {g.dtype} {tuple(g.shape)}")
+        if not torch.isfinite(g.float()).all():
+            fail(f"lstm_cell {label} {fname}: non-finite output")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+        if not torch.allclose(g.float(), w.float(), **tol):
+            fail(f"lstm_cell kernel disagrees with its plain version at {label} {fname}: {err:.3e}")
+    print(f"[parity] lstm_cell {label} {fname}: max_abs_err {err:.3e} (atol/rtol {tol['atol']}; "
+          f"{'/'.join(ran)} kernel) ok")
+    return err
 
 
 def phase_lstm_parity() -> float:
-    """The lstm_cell kernel against its plain version: the harness's shapes
-    and the model's two full-width shapes, all inputs fp32 or all bf16, then
-    the model's mixed feed (x bf16; h, c, weights fp32), whose products both
-    sides take in fp32 on the same values; then ``torch.lstm_cell`` at fp32."""
+    """The lstm_cell kernels against the plain version: the harness's shapes,
+    three row tiles and the model's two full-width shapes, all inputs fp32 or
+    all bf16 (TOL_TIGHT), the old mixed feed (x bf16; h, c, fp32 weights: the
+    FMA kernel, products in fp32 on both sides), and the model's feed (x and
+    weights bf16, h and c fp32: the tensor-core kernel wherever In and H are
+    multiples of 8) at LSTM_MMA_TOL; at the full-width shapes a control that
+    rounds h to bf16 before the kernel must miss LSTM_MMA_TOL; then
+    ``torch.lstm_cell`` at fp32."""
     cases = [(f"harness-{i}", s, False) for i, s in enumerate(LSTM_HARNESS_SHAPES)]
     cases += [("row-tiles", LSTM_ROW_TILES_SHAPE, False)]
     cases += [(f"model-In{s['In']}", s, True) for s in LSTM_MODEL_SHAPES]
     worst = 0.0
     for label, s, model_scales in cases:
-        feeds = [(d, (dt,) * 6, d) for d, dt in DTYPES.items()] + [("mixed", MODEL_FEED, "float32")]
-        for fname, dts, tol_name in feeds:
+        mma_shape = s["In"] % 8 == 0 and s["H"] % 8 == 0
+        feeds = [(d, (dt,) * 6, TOL_TIGHT[d], ("mma" if d == "bfloat16" and mma_shape else "fma"))
+                 for d, dt in DTYPES.items()]
+        feeds += [("mixed", MODEL_FEED, TOL_TIGHT["float32"], "fma"),
+                  ("model_bf16w", BF16W_FEED, LSTM_MMA_TOL, "mma" if mma_shape else "fma")]
+        for fname, dts, tol, path in feeds:
             args = lstm_inputs(s, dts, model_scales=model_scales)
-            got = lstm_ops.lstm_cell_fused(*args)
-            torch.cuda.synchronize()
+            worst = max(worst, _lstm_check(label, fname, args, tol, path=path))
+        if model_scales:  # the control: h rounded to bf16 (h_lo dropped) must miss LSTM_MMA_TOL
+            args = lstm_inputs(s, BF16W_FEED, model_scales=True)
+            got = lstm_ops.lstm_cell_fused(args[0], args[1].bfloat16().float(), *args[2:])
             want = lstm_cell_ref(*args)
-            err = 0.0
-            for g, w, like in zip(got, want, args[1:3]):
-                if g.dtype != like.dtype or g.shape != like.shape:
-                    fail(f"lstm_cell {label} {fname}: got {g.dtype} {tuple(g.shape)}")
-                if not torch.isfinite(g.float()).all():
-                    fail(f"lstm_cell {label} {fname}: non-finite output")
-                err = max(err, (g.float() - w.float()).abs().max().item())
-                if not torch.allclose(g.float(), w.float(), **TOL_TIGHT[tol_name]):
-                    fail(f"lstm_cell kernel disagrees with its plain version at {label} {fname}: {err:.3e}")
-            print(f"[parity] lstm_cell {label} {s} {fname}: max_abs_err {err:.3e} "
-                  f"(atol/rtol {TOL_TIGHT[tol_name]['atol']}) ok")
-            worst = max(worst, err)
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            caught = not all(torch.allclose(g, w, **LSTM_MMA_TOL) for g, w in zip(got, want))
+            print(f"[parity] lstm_cell {label} control, h rounded to bf16: max_abs_err {err:.3e} "
+                  f"{'misses' if caught else 'MEETS'} atol/rtol {LSTM_MMA_TOL['atol']}")
+            if not caught:
+                fail("the h-rounding control met LSTM_MMA_TOL: the check cannot tell the h split apart")
     # cross-check against PyTorch's own cell (gate order i, f, g, o; weight = W.reshape(in, 4H).T)
     for s in LSTM_MODEL_SHAPES:
         x, h, c, wx, wh, b = lstm_inputs(s, (torch.float32,) * 6, seed=1, model_scales=True)
@@ -493,10 +534,11 @@ def phase_train(cfg):
     trainer = Trainer(cfg, adam(lr=1e-3), it, plan=plan, clip_norm=5.0, seed=0, device="cuda")
     twin = MTBatchIterator(SyntheticMTTask(vocab_size=cfg.vocab_size), batch_size=64, seed=0)  # the same batches
     lstm_launches = luong_launches = 0
+    cell = lstm_ops.lstm_cell_fused
     for step in range(1, TRAIN_STEPS + 1):
-        lstm_ops.lstm_cell_fused.launches = luong_ops.luong_attention_fused.launches = 0
+        cell.launches = cell.mma_launches = cell.fma_launches = luong_ops.luong_attention_fused.launches = 0
         trainer.run(1, log_every=1, log=lambda line: None)
-        n_lstm, n_luong = lstm_ops.lstm_cell_fused.launches, luong_ops.luong_attention_fused.launches
+        n_lstm, n_luong = cell.launches, luong_ops.luong_attention_fused.launches
         h = trainer.history[-1]
         if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
             fail(f"training step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
@@ -506,9 +548,12 @@ def phase_train(cfg):
         if n_lstm != want or n_luong != 1:
             fail(f"training step {step}: lstm_cell launches {n_lstm} != layers x (M + N) = {want}, "
                  f"or luong_attn launches {n_luong} != 1")
+        if cell.mma_launches != n_lstm:
+            fail(f"training step {step}: {cell.fma_launches} of {n_lstm} lstm_cell launches took the FMA "
+                 "kernel, not the tensor-core one")
         print(f"[train] step {step}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} "
               f"{h['tokens']:.0f} target tokens M={M} N={N} in {h['step_s'] * 1e3:.1f} ms; "
-              f"launches lstm_cell {n_lstm} luong_attn {n_luong}")
+              f"launches lstm_cell {n_lstm} (tensor-core {cell.mma_launches}) luong_attn {n_luong}")
         lstm_launches += n_lstm
         luong_launches += n_luong
     steady = trainer.history[2:]
@@ -551,10 +596,11 @@ def phase_step_paths(cfg):
           f"(atol {STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
 
 
-def _median_ms(fn, runs: int, flush: torch.Tensor, hide_host: bool) -> float:
+def _median_ms(fn, runs: int, flush, hide_host: bool) -> float:
     """Median of ``runs`` single calls timed with CUDA events, the L2 cache
-    flushed before each (the decode tick streams 100+ MB of other weights
-    between two head calls, so the head finds its weights cold).  With
+    flushed before each by zeroing ``flush`` (the decode tick streams 100+ MB
+    of other weights between two head calls, so the head finds its weights
+    cold), or left warm when ``flush`` is None.  With
     ``hide_host`` the device spins before the timed region while the host
     enqueues the whole call, so the events time the device's work alone;
     without it they also take in any wait for the host's enqueue."""
@@ -562,7 +608,8 @@ def _median_ms(fn, runs: int, flush: torch.Tensor, hide_host: bool) -> float:
         fn()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if flush is not None:
+            flush.zero_()
         if hide_host:
             torch.cuda._sleep(2_000_000)  # about a millisecond of device clock cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -621,46 +668,67 @@ def phase_timing(launches: int, ticks: int, max_err: float) -> dict:
     }
 
 
-def phase_lstm_timing(launches: int, max_err: float) -> dict:
-    """The lstm_cell kernel at the training step's shape with the model's
-    feed; the plain version on the same inputs; ``torch.lstm_cell`` in bf16
-    (all inputs bf16, its weights in PyTorch's [4H, in] layout) as the
-    library yardstick."""
-    s = LSTM_TIMING_SHAPE
-    B, In, H = s["B"], s["In"], s["H"]
-    args = lstm_inputs(s, MODEL_FEED, seed=6, model_scales=True)
-    x, h, c, wx, wh, b = args
-    lib_args = (x.bfloat16(), (h.bfloat16(), c.bfloat16()), wx.reshape(In, 4 * H).t().contiguous().bfloat16(),
-                wh.reshape(H, 4 * H).t().contiguous().bfloat16(), b.reshape(-1).bfloat16(),
-                torch.zeros(4 * H, dtype=torch.bfloat16, device="cuda"))
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
-    runs = 40
-    kernel = lambda: lstm_ops.lstm_cell_fused(*args)
-    plain = lambda: lstm_cell_ref(*args)
-    library = lambda: torch.lstm_cell(*lib_args)
-    kernel_ms, plain_ms, library_ms = (_median_ms(f, runs, flush, True) for f in (kernel, plain, library))
-    kernel_call_ms, plain_call_ms = _median_ms(kernel, runs, flush, False), _median_ms(plain, runs, flush, False)
-    got, want = kernel(), plain()
-    max_err = max([max_err] + [(g - w).abs().max().item() for g, w in zip(got, want)])
-    # least work: each input read once (x bf16, the rest fp32), h' and c' written once in fp32;
-    # the gate products' flops at the tensor-core peak.  The kernel does them as fp32 FMA, so
-    # its time at the fp32 rate outside the tensor cores is printed beside the bound as a note.
-    nbytes = 2 * B * In + 4 * (2 * B * H + 4 * In * H + 4 * H * H + 4 * H) + 4 * 2 * B * H
+def _lstm_bound(args, outs) -> tuple:
+    """(bound ms, bound_by, bytes, flops) of one cell call: each tensor passed
+    read once and each output written once, at their element sizes, against
+    the gate products' flops at the bf16 tensor-core peak."""
+    x, h = args[0], args[1]
+    B, In, H = x.shape[0], x.shape[1], h.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
     flops = 2 * B * (In + H) * 4 * H
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[timing] lstm_cell at B={B} In={In} H={H}, x bf16, h/c/weights fp32, median of {runs} runs, "
-          f"L2 flushed: device time kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.lstm_cell "
-          f"(bf16) {library_ms:.4f} ms; with the host's enqueue kernel {kernel_call_ms:.4f} ms, plain "
-          f"{plain_call_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at 3.35 TB/s = "
-          f"{t_bytes * 1e6:.2f} us, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e6:.2f} us; note: the same "
-          f"flops as fp32 FMA at 67 TFLOP/s take {flops / FP32_FLOP_PER_S * 1e6:.2f} us); {launches} "
-          f"launches in {TRAIN_STEPS} training steps")
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def phase_lstm_timing(launches: int, max_err: float) -> dict:
+    """The lstm_cell kernel at the training step's shape on the model's feed
+    (x bf16, the weights cast and packed once as a layer call does, h and c
+    fp32: the tensor-core kernel), with the L2 flushed and warm (a layer's
+    16.8 MB of bf16 weights stay in the 50 MB L2 between timesteps), and at
+    In=512; beside it the old fp32-masters feed (the FMA kernel), the plain
+    version on the model's feed and ``torch.lstm_cell`` in bf16 (all inputs
+    bf16, its weights in PyTorch's [4H, in] layout) as the library yardstick."""
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    runs = 40
+    times = {}
+    for s in (LSTM_TIMING_SHAPE, LSTM_MODEL_SHAPES[0]):
+        B, In, H = s["B"], s["In"], s["H"]
+        x, h, c, wx, wh, b = lstm_inputs(s, (torch.float32,) * 6, seed=6, model_scales=True)
+        xb = x.bfloat16()
+        w = lstm_ops.cast_weights(wx, wh, b, torch.bfloat16)
+        kernel = lambda: lstm_ops.lstm_cell_fused(xb, h, c, wx, wh, b, weights=w)  # noqa: E731
+        before = lstm_ops.lstm_cell_fused.mma_launches
+        got = kernel()
+        if lstm_ops.lstm_cell_fused.mma_launches != before + 1:
+            fail("the timed model feed did not take the tensor-core kernel")
+        plain_args = (xb, h, c, wx.bfloat16(), wh.bfloat16(), b.bfloat16())
+        want = lstm_cell_ref(*plain_args)
+        max_err = max([max_err] + [(g - v).abs().max().item() for g, v in zip(got, want)])
+        t = {"kernel": _median_ms(kernel, runs, flush, True), "kernel_warm": _median_ms(kernel, runs, None, True)}
+        bound_ms, bound_by, nbytes, flops = _lstm_bound((xb, h, c, w.packed, w.b), got)
+        print(f"[timing] lstm_cell at B={B} In={In} H={H} on the model's feed (x, weights bf16; h, c fp32), "
+              f"median of {runs} runs: device time {t['kernel']:.4f} ms with the L2 flushed, "
+              f"{t['kernel_warm']:.4f} ms warm; bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
+              f"3.35 TB/s, {flops} FLOP at 989 TFLOP/s)")
+        if s is LSTM_TIMING_SHAPE:
+            lib_args = (xb, (h.bfloat16(), c.bfloat16()), wx.reshape(In, 4 * H).t().contiguous().bfloat16(),
+                        wh.reshape(H, 4 * H).t().contiguous().bfloat16(), b.reshape(-1).bfloat16(),
+                        torch.zeros(4 * H, dtype=torch.bfloat16, device="cuda"))
+            fp32_feed = lambda: lstm_ops.lstm_cell_fused(xb, h, c, wx, wh, b)  # noqa: E731
+            t["fp32_masters"] = _median_ms(fp32_feed, runs, flush, True)
+            t["plain"] = _median_ms(lambda: lstm_cell_ref(*plain_args), runs, flush, True)
+            t["library"] = _median_ms(lambda: torch.lstm_cell(*lib_args), runs, flush, True)
+            t["kernel_call"] = _median_ms(kernel, runs, flush, False)
+            old_bound, _, old_bytes, _ = _lstm_bound((xb, h, c, wx, wh, b), got)
+            print(f"[timing] lstm_cell at B={B} In={In} H={H}, L2 flushed: the old fp32-masters feed (FMA kernel) "
+                  f"{t['fp32_masters']:.4f} ms (bound {old_bound * 1e3:.2f} us, {old_bytes} B); plain version "
+                  f"{t['plain']:.4f} ms; torch.lstm_cell (bf16) {t['library']:.4f} ms; the model's feed with the "
+                  f"host's enqueue {t['kernel_call']:.4f} ms; {launches} launches in {TRAIN_STEPS} training steps")
+            times, record_bound = t, (bound_ms, bound_by)
     return {
         "name": "lstm_cell", "route": "cuda", "source": LSTM_SOURCE, "replaces": LSTM_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "launches": launches, "max_abs_err": max_err, "ms": times["kernel"], "plain_ms": times["plain"],
+        "bound_ms": record_bound[0], "bound_by": record_bound[1], "library_ms": times["library"],
     }
 
 

@@ -7,11 +7,15 @@ each cell of :func:`run_stacked_lstm`:
   GEMMs run and sum in the compute dtype, then upcast to fp32; the h/c
   carries stay fp32; h is returned in the compute dtype.  The weights are
   cast to the compute dtype once per layer call, not once per timestep.
-* ``"cuda"``: the fused cell ``kernels/lstm_cell`` (its CUDA kernel on the
-  card), fed as the JAX pipeline's stage cell feeds the Pallas kernel
-  (``repro/core/pipeline.py:97-110``): x in the compute dtype, h and c in
-  fp32, the stored fp32 weights as they are; its fp32 h is cast to the
-  compute dtype before it enters the next layer.
+* ``"cuda"``: the fused cell ``kernels/lstm_cell`` (its CUDA kernels on the
+  card): x in the compute dtype, h and c fp32 carries, and the weights cast
+  to the compute dtype once per layer call (``ops.cast_weights``), as the
+  JAX package's meshless cell casts them; at fp32 that is the stored
+  weights as they are, the JAX pipeline's stage-cell feed
+  (``repro/core/pipeline.py:97-110``).  In bf16 the cell runs on the
+  tensor-core kernel; the masters' grads are summed over the timesteps in
+  fp32.  Its fp32 h is cast to the compute dtype before it enters the next
+  layer.
 
 Both run layer-major: layer l covers the whole sequence before layer l+1.
 """
@@ -79,12 +83,13 @@ def run_lstm_layer(p: dict, xs: torch.Tensor, state: Optional[LSTMCellState] = N
         state = init_lstm_state(B, p["wh"].shape[0], xs.device)
     hs = []
     if stage_kernel == "cuda":
-        from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+        from repro_torch.kernels.lstm_cell.ops import cast_weights, lstm_cell_fused
 
         h, c = state
+        w = cast_weights(p["wx"], p["wh"], p["b"], xs.dtype)  # once per layer call
         x_steps = xs.transpose(0, 1).contiguous()  # [S, B, in]: each step's rows contiguous, as the kernel takes
         for t in range(S):
-            h, c = lstm_cell_fused(x_steps[t], h, c, p["wx"], p["wh"], p["b"])
+            h, c = lstm_cell_fused(x_steps[t], h, c, p["wx"], p["wh"], p["b"], weights=w)
             hs.append(h.to(xs.dtype))
         state = LSTMCellState(h=h, c=c)
     elif stage_kernel == "torch":

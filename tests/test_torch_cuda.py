@@ -73,13 +73,25 @@ def _lstm_inputs(s, dts, seed=0):
     return tuple(t.to(dt) for t, dt in zip((x, h, c, wx, wh, b), dts))
 
 
-@pytest.mark.parametrize("feed", ["float32", "bfloat16", "model"])
+# the model's feed to the tensor-core kernel: x and the weights bf16, h and c fp32
+BF16W_FEED = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16, torch.bfloat16, torch.bfloat16)
+LSTM_MMA_TOL = dict(atol=1e-4, rtol=1e-4)  # chip_smoke.py's: exact bf16 products, h kept as h_hi + h_lo
+FEEDS = {
+    "float32": ((torch.float32,) * 6, TOL_TIGHT["float32"]),
+    "bfloat16": ((torch.bfloat16,) * 6, TOL_TIGHT["bfloat16"]),
+    "model": ((torch.bfloat16,) + (torch.float32,) * 5, TOL_TIGHT["float32"]),
+    "model_bf16w": (BF16W_FEED, LSTM_MMA_TOL),
+}
+
+
+@pytest.mark.parametrize("feed", list(FEEDS))
 def test_lstm_kernel_matches_plain(cuda, feed):
-    """All six inputs in one dtype at TOL_TIGHT, and the model's feed (x bf16,
-    h/c and weights fp32) at fp32's: both sides take the same bf16 x into
-    fp32 products, and the outputs are fp32."""
-    dts = (torch.bfloat16,) + (torch.float32,) * 5 if feed == "model" else (TORCH_DT[feed],) * 6
-    tol = TOL_TIGHT["bfloat16" if feed == "bfloat16" else "float32"]
+    """All six inputs in one dtype at TOL_TIGHT; the old mixed feed (x bf16,
+    h/c and fp32 weights) at fp32's: both sides take the same bf16 x into fp32
+    products, and the outputs are fp32; and the model's feed (x and weights
+    bf16, h/c fp32: the tensor-core kernel where In and H are multiples of 8)
+    at LSTM_MMA_TOL."""
+    dts, tol = FEEDS[feed]
     for s in LSTM_SHAPES:
         args = _lstm_inputs(s, dts)
         before = lstm_ops.lstm_cell_fused.launches
@@ -91,6 +103,23 @@ def test_lstm_kernel_matches_plain(cuda, feed):
             assert g.dtype == ref_in.dtype and g.shape == ref_in.shape
             np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), **tol,
                                        err_msg=f"{s} {feed}")
+
+
+def test_lstm_kernel_path_counters(cuda):
+    """The per-path counters: the model's feed at In, H multiples of 8 runs the
+    tensor-core kernel; the same feed at a ragged width, and the fp32 feed,
+    run the FMA kernel; each call counts once in ``launches`` too."""
+    fn = lstm_ops.lstm_cell_fused
+    cases = [(LSTM_SHAPES[7], BF16W_FEED, "mma"), (LSTM_SHAPES[5], BF16W_FEED, "fma"),
+             (LSTM_SHAPES[7], (torch.float32,) * 6, "fma")]
+    for s, dts, path in cases:
+        args = _lstm_inputs(s, dts)
+        before = (fn.launches, fn.mma_launches, fn.fma_launches)
+        fn(*args)
+        torch.cuda.synchronize()
+        after = (fn.launches, fn.mma_launches, fn.fma_launches)
+        want = (1, int(path == "mma"), int(path == "fma"))
+        assert tuple(a - b for a, b in zip(after, before)) == want, f"{s} {dts[3]}: expected the {path} kernel"
 
 
 def test_lstm_backward_through_kernel_matches_plain(cuda):

@@ -8,10 +8,17 @@ stacked use against the JAX package's, on the CPU.
   ``tests/kernel_harness.py``, fp32 and bf16.  Forward at ``TOL_TIGHT``;
   fp32 grads at atol 1e-5 / rtol 1e-4 (``tests/test_kernels.py``'s);
   bf16 grads at ``TOL_TIGHT``'s bf16 entry.
+* ``lstm_cell_fused`` on the model's feed (x and weights bf16, h and c fp32)
+  against JAX's on the same values: forward at ``TOL_TIGHT["float32"]``, each
+  grad at the tolerance of its dtype (fp32 for h and c, bf16 for x and the
+  weights, whose grads both sides round to bf16).
 * ``run_stacked_lstm(stage_kernel="cuda")`` against a JAX loop that feeds
-  the Pallas cell as ``repro/core/pipeline.py:97-110`` does (x in the
-  compute dtype, h/c fp32, fp32 weights, h cast before the next layer):
-  outputs and grads.
+  the Pallas cell the compute dtype's values (x and the weights cast to it,
+  h/c fp32, h cast before the next layer; at fp32 this is the pipeline's
+  stage-cell feed, ``repro/core/pipeline.py:97-110``): outputs and grads; and
+  at bf16 over 32 timesteps, that the fp32 masters' grads are fp32 sums over
+  the timesteps, as JAX's are, and not bf16 sums.
+* The tensor-core kernel's packed weight layout and ``cast_weights``.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -130,8 +137,48 @@ def test_wrapper_rejects_bad_inputs():
         ops.lstm_cell_fused(*[a.to("meta") for a in arrs])
 
 
+MODEL_FEED_DTS = ("bfloat16", "float32", "float32", "bfloat16", "bfloat16", "bfloat16")  # x, h, c, wx, wh, b
+
+
+def _by_dtype(t):
+    return GRAD_TOL["bfloat16" if t.dtype == torch.bfloat16 else "float32"]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_sid)
+def test_lstm_cell_fused_model_feed_matches_jax(shape):
+    """x and the weights bf16, h and c fp32: the plain version against the
+    Pallas kernel in interpret mode, both fp32 math on the same values.  The
+    forward at fp32's tolerance; dh and dc (fp32) at fp32's grad tolerance;
+    dx and the weight grads at bf16's, since both sides round them to their
+    inputs' dtype."""
+    arrs = _cell_inputs(shape)
+    wh_, wc_ = _loss_weights(shape)
+    targs = [torch.from_numpy(a).to(TORCH_DT[d]).requires_grad_() for a, d in zip(arrs, MODEL_FEED_DTS)]
+    jargs = [jnp.asarray(a, jnp.dtype(d)) for a, d in zip(arrs, MODEL_FEED_DTS)]
+    cell = lambda *a: jax_fused(*a, block_b=shape["bb"], block_h=shape["bh"], interpret=True)  # noqa: E731
+
+    h_new, c_new = ops.lstm_cell_fused(*targs)
+    jh, jc = cell(*jargs)
+    assert h_new.dtype == c_new.dtype == torch.float32
+    _close(h_new.detach(), jh, TOL_TIGHT["float32"], f"h' {shape}")
+    _close(c_new.detach(), jc, TOL_TIGHT["float32"], f"c' {shape}")
+
+    loss = (h_new * torch.from_numpy(wh_)).sum() + (c_new * torch.from_numpy(wc_)).sum()
+    grads = torch.autograd.grad(loss, targs)
+
+    def jloss(*a):
+        h, c = cell(*a)
+        return jnp.sum(h * wh_) + jnp.sum(c * wc_)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(6)))(*jargs)
+    for name, g, jg, a in zip(NAMES, grads, jgrads, targs):
+        assert g.dtype == a.dtype and g.shape == a.shape
+        _close(g, jg, _by_dtype(g), f"d{name} {shape}")
+
+
 def _jax_stacked_pallas(jparams, xs, dt):
-    """The JAX pipeline's stage-cell feed, layer-major on one stage."""
+    """The JAX package's cell feed, layer-major on one stage: x and the
+    weights in the compute dtype (cast inside each step), h and c fp32."""
     B, S, _ = xs.shape
     h_in = xs
     for p in jparams:
@@ -139,14 +186,15 @@ def _jax_stacked_pallas(jparams, xs, dt):
         h, c = jnp.zeros((B, H), jnp.float32), jnp.zeros((B, H), jnp.float32)
         outs = []
         for t in range(S):
-            h, c = jax_fused(h_in[:, t], h, c, p["wx"], p["wh"], p["b"], interpret=True)
+            h, c = jax_fused(h_in[:, t], h, c, p["wx"].astype(dt), p["wh"].astype(dt), p["b"].astype(dt),
+                             interpret=True)
             outs.append(h.astype(dt))
         h_in = jnp.stack(outs, axis=1)
     return h_in
 
 
 @pytest.mark.parametrize("dt", DTYPES)
-def test_stacked_lstm_cuda_path_matches_jax_pipeline_feed(dt):
+def test_stacked_lstm_cuda_path_matches_jax_compute_dtype_feed(dt):
     rng = np.random.default_rng(4)
     B, S, In, H, L = 3, 5, 8, 16, 2
     layers = [
@@ -177,3 +225,104 @@ def test_stacked_lstm_cuda_path_matches_jax_pipeline_feed(dt):
     jleaves = [jgx] + [p[k] for p in jgp for k in ("wx", "wh", "b")]
     for i, (g, jg) in enumerate(zip(grads, jleaves)):
         _close(g, jg, GRAD_TOL[dt], f"grad leaf {i} {dt}")
+
+
+def _one_layer(seed, B, S, In, H):
+    rng = np.random.default_rng(seed)
+    layer = {"wx": (rng.normal(size=(In, 4, H)) * In**-0.5).astype(np.float32),
+             "wh": (rng.normal(size=(H, 4, H)) * H**-0.5).astype(np.float32),
+             "b": (rng.normal(size=(4, H)) * 0.1).astype(np.float32)}
+    return layer, rng.normal(size=(B, S, In)).astype(np.float32), rng.normal(size=(B, S, H)).astype(np.float32)
+
+
+def test_stacked_lstm_weight_grads_are_fp32_sums_over_timesteps():
+    """bf16 over 32 timesteps: the fp32 masters' grads from
+    ``run_stacked_lstm(stage_kernel="cuda")`` (the masters cast once per
+    layer call) against JAX's from a loop that casts the masters to bf16
+    inside each step, whose scan sums the steps' terms in fp32.
+
+    Tolerance, per leaf: 2^-8 of the largest JAX grad.  JAX's backward rounds
+    each step's term to bf16 (a relative error of at most 2^-9); the port
+    keeps them in fp32, and the two differ by those roundings, dominated by
+    the largest terms.  The bf16-summed alternative (the bf16 copy as the
+    cell's input, so autograd sums the 32 terms into it in bf16, rounding the
+    running sum at every step) must miss the same tolerance."""
+    B, S, In, H = 3, 32, 8, 16
+    layer, xs, w_out = _one_layer(7, B, S, In, H)
+    bf16 = jnp.bfloat16
+
+    def jloss(p, x):
+        def step(carry, x_t):
+            h, c = jax_fused(x_t, *carry, p["wx"].astype(bf16), p["wh"].astype(bf16), p["b"].astype(bf16),
+                             interpret=True)
+            return (h, c), h.astype(bf16)
+
+        z = jnp.zeros((B, H), jnp.float32)
+        _, hs = jax.lax.scan(step, (z, z), jnp.swapaxes(x, 0, 1))
+        return jnp.sum(jnp.swapaxes(hs, 0, 1).astype(jnp.float32) * w_out)
+
+    jg = jax.grad(jloss)({k: jnp.asarray(v) for k, v in layer.items()}, jnp.asarray(xs, bf16))
+    tx = torch.from_numpy(xs).to(torch.bfloat16)
+    w = torch.from_numpy(w_out)
+
+    masters = {k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()}
+    hs, _ = lstm.run_stacked_lstm([masters], tx, stage_kernel="cuda")
+    fp32_sums = torch.autograd.grad((hs.float() * w).sum(), [masters[k] for k in ("wx", "wh", "b")])
+
+    masters2 = {k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()}
+    copies = {k: v.to(torch.bfloat16) for k, v in masters2.items()}
+    h, c, outs = torch.zeros(B, H), torch.zeros(B, H), []
+    for t in range(S):
+        h, c = ops.lstm_cell_fused(tx[:, t].contiguous(), h, c, copies["wx"], copies["wh"], copies["b"])
+        outs.append(h.to(torch.bfloat16))
+    assert torch.equal(torch.stack(outs, 1), hs)  # the same forward
+    bf16_sums = torch.autograd.grad((torch.stack(outs, 1).float() * w).sum(), [masters2[k] for k in ("wx", "wh", "b")])
+
+    for name, g, g16 in zip(("wx", "wh", "b"), fp32_sums, bf16_sums):
+        want = np.asarray(jg[name], np.float32)
+        tol = dict(atol=2.0**-8 * np.abs(want).max(), rtol=0)
+        assert g.dtype == g16.dtype == torch.float32
+        _close(g, want, tol, f"d{name}: fp32 sums")
+        with pytest.raises(AssertionError):
+            _close(g16, want, tol, f"d{name}: bf16 sums")
+
+
+def test_pack_weights_layout():
+    """The tensor-core kernel's packed copy, element by element: tile t, chunk
+    q, row n = (granule, gate, unit), depth k stored at 16-byte group
+    (k // 8) ^ (n % 8); zero past In, H and the last unit."""
+    In, H = 24, 40  # ragged in every direction: 3 tiles (the last half empty), one chunk of x, one of h
+    rng = np.random.default_rng(0)
+    wx = torch.from_numpy(rng.normal(size=(In, 4, H)).astype(np.float32))
+    wh = torch.from_numpy(rng.normal(size=(H, 4, H)).astype(np.float32))
+    packed = ops.pack_weights(wx, wh)
+    assert packed.dtype == torch.bfloat16 and tuple(packed.shape) == (3, 2, 64, 64)
+    want = torch.zeros(3, 2, 64, 64)
+    for t in range(3):
+        for n in range(64):
+            unit = 16 * t + 8 * (n // 32) + n % 8
+            if unit >= H:
+                continue
+            gate = n // 8 % 4
+            for k in range(64):
+                col = ((k // 8) ^ (n % 8)) * 8 + k % 8
+                if k < In:
+                    want[t, 0, n, col] = wx[k, gate, unit]
+                if k < H:
+                    want[t, 1, n, col] = wh[k, gate, unit]
+    assert torch.equal(packed.float(), want.bfloat16().float())
+
+
+def test_cast_weights():
+    """At fp32 the masters themselves (no copy); at bf16 fp32 copies of the
+    rounded values, and no packed copy off the card."""
+    layer, _, _ = _one_layer(1, 2, 1, 8, 16)
+    wx, wh, b = (torch.from_numpy(layer[k]) for k in ("wx", "wh", "b"))
+    w32 = ops.cast_weights(wx, wh, b, torch.float32)
+    assert w32.packed is None
+    for got, master in zip(w32[:3], (wx, wh, b)):
+        assert got.data_ptr() == master.data_ptr() and got.dtype == torch.float32 and not got.requires_grad
+    w16 = ops.cast_weights(wx, wh, b, torch.bfloat16)
+    assert w16.packed is None
+    for got, master in zip(w16[:3], (wx, wh, b)):
+        assert got.dtype == torch.float32 and torch.equal(got, master.bfloat16().float())
