@@ -37,20 +37,26 @@ Phases, each printed as it runs; any failure exits nonzero:
    training shape), ``lstm_cell`` at the training shape on the model's feed
    (L2 flushed and warm; and at In=512), beside the fp32-masters feed's FMA
    kernel, the plain version and ``torch.lstm_cell`` in bf16;
-10. ``flash_attn`` kernel vs plain, fp32 (the FMA kernel) and bf16 (the
-    tensor-core kernel; the FMA kernel at D=8): the ``tests/kernel_harness.py``
-    shapes, the full-width prefill's per-layer call (B=4, S=2048, 16 q heads
-    on 8 kv heads, D=128, window 4096), a window-binding one (B=1,
-    S=8192) and the MoE LM's prefill call (B=4, S=2048, 32 q heads on 4 kv
-    heads).  bf16 is also held against the plain version's fp32 output on
-    the same bf16 inputs (FLASH_BF16_TOL and a relative L2 bound), and a
-    control with the window one 64-key tile short must miss that bound;
+10. ``flash_attn`` kernel vs plain, on every route that takes the inputs:
+    fp32 on the FMA kernel ("fma"); bf16 on the wgmma kernel ("wgmma", D=64
+    and 128), the mma.sync kernel ("mma", D a multiple of 16) and the FMA
+    kernel (not at the three full-width shapes): the ``tests/kernel_harness.py``
+    shapes, four edge shapes (S=77 against T=131 with G=3, D=64 at G=1
+    without the causal mask, one row, G=8 with a window of 100), the
+    full-width prefill's per-layer call (B=4, S=2048, 16 q heads on 8 kv
+    heads, D=128, window 4096), a window-binding one (B=1, S=8192) and the
+    MoE LM's prefill call (B=4, S=2048, 32 q heads on 4 kv heads).  Each
+    launch must count on its route; two wgmma calls must be bit-identical.
+    bf16 is also held against the plain version's fp32 output on the same
+    bf16 inputs (FLASH_BF16_TOL and a relative L2 bound), and a control with
+    the window 64 keys short must miss that bound;
 11. LM serving: the full-width ``qwen3-1.7b`` (28 layers, d=2048, V=151936,
     bf16 over fp32 masters, random weights from seed 0) through
     ``ServeEngine.generate``: (a) 4 prompts of 2048 tokens, 32 new tokens;
     (b) 1 prompt of 8192 tokens (past the 4096 window: the rolling cache and
     the window's tile pruning run), 16 new tokens; exactly 28 ``flash_attn``
-    launches per generate, i.e. per prefill and none per decode step (greedy
+    launches per generate, all on the wgmma route, i.e. per prefill and none
+    per decode step (greedy
     decode replays a CUDA graph of the step); then one prefill and 8 eager
     decode steps under ``torch.profiler``;
 12. kernel path vs plain path in the LM, fp32: one prefill of 2 prompts of
@@ -72,7 +78,8 @@ Phases, each printed as it runs; any failure exits nonzero:
 15. MoE serving: ``qwen3-moe-30b-a3b`` at full width, its depth cut to 8 of
     48 layers (bf16 over fp32 masters, random weights from seed 0), through
     ``ServeEngine.generate`` at (a)'s shape: 4 prompts of 2048 tokens, 32 new
-    tokens; exactly 8 ``flash_attn`` launches (the prefill) and 24
+    tokens; exactly 8 ``flash_attn`` launches (the prefill, all on the wgmma
+    route) and 24
     ``moe_gemm`` launches (8 in the prefill, 8 in the eager decode step, 8 in
     the capture of the CUDA graph; the replays launch from the graph); then
     one prefill and 8 eager decode steps under ``torch.profiler``, and one
@@ -89,8 +96,10 @@ Phases, each printed as it runs; any failure exits nonzero:
     ``moe_gemm`` call, and the flat query heads regrouped under the wrong
     kv heads in every ``flash_attn`` call;
 18. timing with CUDA events: ``flash_attn`` at (a)'s per-layer call against
-    its plain version and ``scaled_dot_product_attention`` (the library
-    yardstick, used nowhere in the port), and at (b)'s; ``moe_gemm`` at the
+    the mma route's kernel, its plain version and
+    ``scaled_dot_product_attention`` (the library yardstick, used nowhere in
+    the port), at the MoE prefill's call (G=8) against the mma route's
+    kernel and SDPA, and at (b)'s against the mma route's kernel; ``moe_gemm`` at the
     MoE prefill's call, at a decode step's call on a dense buffer (every
     expert has a row) and on the dispatch buffer of a served decode step
     (its bound counts only the experts with a row), against its plain
@@ -99,7 +108,8 @@ Phases, each printed as it runs; any failure exits nonzero:
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
 launches of the serving runs and the training run, each counted from 0
-around its run), the ``nvidia-smi`` name and power-limit line, and, last,
+around its run; ``flash_attn`` also by route), the ``nvidia-smi`` name and
+power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
 Without CUDA, or without the repository beside it, it exits nonzero and
 prints no result.
@@ -180,7 +190,6 @@ STEP_TOL = dict(atol=1e-4, rtol=1e-3)
 STEP_LOSS_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores (printed as a note only)
 LUONG_REPLACES = "src/repro/kernels/luong_attn/kernel.py:30"
 LUONG_SOURCE = "src/repro_torch/kernels/luong_attn/csrc/luong_attn.cu"
 LSTM_REPLACES = "src/repro/kernels/lstm_cell/kernel.py:27"
@@ -198,6 +207,14 @@ FLASH_HARNESS_SHAPES = [
     dict(B=1, S=96, KV=1, G=2, D=32, causal=True, window=None),
     dict(B=1, S=32, KV=1, G=1, D=8, causal=True, window=1),
 ]
+# shapes for the wgmma kernel at its edges: ragged S != T with odd G, D=64 at
+# G=1 without the causal mask, one row, and G=8 with a window
+FLASH_EDGE_SHAPES = [
+    dict(B=2, S=77, T=131, KV=2, G=3, D=128, causal=True, window=50),
+    dict(B=2, S=200, KV=3, G=1, D=64, causal=False, window=None),
+    dict(B=2, S=1, KV=2, G=2, D=128, causal=True, window=None),
+    dict(B=1, S=300, KV=2, G=8, D=128, causal=True, window=100),
+]
 FLASH_PREFILL_SHAPE = dict(B=4, S=2048, KV=8, G=2, D=128, causal=True, window=4096)
 FLASH_LONG_SHAPE = dict(B=1, S=8192, KV=8, G=2, D=128, causal=True, window=4096)
 FLASH_MOE_SHAPE = dict(B=4, S=2048, KV=4, G=8, D=128, causal=True, window=4096)  # the MoE LM's prefill call
@@ -208,7 +225,7 @@ LM_PATHS_TOL = dict(atol=1e-3, rtol=1e-3)  # fp32 logits after 28 layers, two su
 # where TOL_ATTN's bf16 bound is as large as a typical output at S=2048
 FLASH_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
 FLASH_BF16_REL_L2 = 1e-2  # ||kernel - plain|| / ||plain||
-FLASH_TILE = 64  # keys per staged tile of the tensor-core kernel (kMmaBKV)
+FLASH_TILE = 64  # keys the window control drops from each late row's window
 # bf16 last-position logits, kernel path vs plain path after 28 layers (8 in the MoE LM)
 LM_BF16_LOGITS_REL_L2 = 5e-2
 MOE_REPLACES = "src/repro/kernels/moe_gemm/kernel.py:23"
@@ -733,12 +750,13 @@ def phase_lstm_timing(launches: int, max_err: float) -> dict:
 
 
 def flash_inputs(s: dict, dtype: torch.dtype, seed: int = 0):
-    """q [B*KV*G, S, D], k/v [B*KV, S, D] on the card, N(0,1) (the harness's
-    scales)."""
+    """q [B*KV*G, S, D], k/v [B*KV, T, D] (T = S unless given) on the card,
+    N(0,1) (the harness's scales)."""
     rng = np.random.default_rng(seed)
     B, S, KV, G, D = s["B"], s["S"], s["KV"], s["G"], s["D"]
+    T = s.get("T", S)
     f = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)  # noqa: E731
-    return f((B * KV * G, S, D)), f((B * KV, S, D)), f((B * KV, S, D))
+    return f((B * KV * G, S, D)), f((B * KV, T, D)), f((B * KV, T, D))
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -757,33 +775,60 @@ def _flash_bf16_check(got, q, k, v, kw, label: str) -> tuple:
     return err, rel
 
 
+def _flash_routes(s: dict, dtype: torch.dtype) -> list:
+    """The kernels to check at shape ``s``: every route that takes (dtype, D),
+    the wrapper's pick first; at the full-width shapes not the bf16 FMA
+    kernel (its fp32 case runs there)."""
+    pick = flash_ops.pick_route(dtype, s["D"])
+    routes = [pick] + [r for r in flash_ops.ROUTES if r != pick and flash_ops.route_fits(r, dtype, s["D"])]
+    if dtype == torch.bfloat16 and s["S"] >= 2048:
+        routes = [r for r in routes if r != "fma"]
+    return routes
+
+
 def phase_flash_parity() -> float:
-    """Returns the worst max_abs_err: fp32 against the plain version, bf16
-    against the plain version's fp32 output."""
+    """Every kernel route against the plain version: fp32 at TOL_ATTN; bf16
+    at TOL_ATTN and against the plain version's fp32 output. Each launch must
+    count on the route it named, and two calls of the wgmma route must be
+    bit-identical. Returns the worst max_abs_err."""
     worst = 0.0
     cases = [(f"harness-{i}", s) for i, s in enumerate(FLASH_HARNESS_SHAPES)]
+    cases += [(f"edge-{i}", s) for i, s in enumerate(FLASH_EDGE_SHAPES)]
     cases += [("prefill-a", FLASH_PREFILL_SHAPE), ("prefill-b", FLASH_LONG_SHAPE), ("moe-prefill", FLASH_MOE_SHAPE)]
     for label, s in cases:
         for dname, dtype in DTYPES.items():
             q, k, v = flash_inputs(s, dtype)
             kw = dict(causal=s["causal"], window=s["window"], group=s["G"])
-            got = flash_ops.flash_attention_fused(q, k, v, **kw)
-            torch.cuda.synchronize()
-            want = flash_attention_plain(q, k, v, **kw)
-            if got.dtype != dtype or got.shape != q.shape:
-                fail(f"flash_attn {label} {dname}: got {got.dtype} {tuple(got.shape)}")
-            if not torch.isfinite(got.float()).all():
-                fail(f"flash_attn {label} {dname}: non-finite output")
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.allclose(got.float(), want.float(), **TOL_ATTN[dname]):
-                fail(f"flash_attn kernel disagrees with its plain version at {label} {dname}: {err:.3e}")
-            line = f"[parity] flash_attn {label} {s} {dname}: max_abs_err {err:.3e} (atol/rtol {TOL_ATTN[dname]['atol']})"
-            if dname == "bfloat16":
-                err, rel = _flash_bf16_check(got, q, k, v, kw, label)
-                line += (f"; vs the plain version's fp32 output max_abs_err {err:.3e} (atol/rtol "
-                         f"{FLASH_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {FLASH_BF16_REL_L2})")
-            print(line + " ok")
-            worst = max(worst, err)
+            want = None
+            for route in _flash_routes(s, dtype):
+                before = dict(flash_ops.flash_attention_fused.launches_by_route)
+                got = flash_ops.flash_attention_fused(q, k, v, route=route, **kw)
+                torch.cuda.synchronize()
+                after = flash_ops.flash_attention_fused.launches_by_route
+                if {r: after[r] - before[r] for r in after} != {r: int(r == route) for r in after}:
+                    fail(f"flash_attn {label} {dname}: route {route} counted {after} after {before}")
+                if want is None:
+                    want = flash_attention_plain(q, k, v, **kw)
+                if got.dtype != dtype or got.shape != q.shape:
+                    fail(f"flash_attn {label} {dname} {route}: got {got.dtype} {tuple(got.shape)}")
+                if not torch.isfinite(got.float()).all():
+                    fail(f"flash_attn {label} {dname} {route}: non-finite output")
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.allclose(got.float(), want.float(), **TOL_ATTN[dname]):
+                    fail(f"flash_attn {route} kernel disagrees with its plain version at {label} {dname}: {err:.3e}")
+                line = (f"[parity] flash_attn {label} {s} {dname} {route}: max_abs_err {err:.3e} (atol/rtol "
+                        f"{TOL_ATTN[dname]['atol']})")
+                if dname == "bfloat16":
+                    err, rel = _flash_bf16_check(got, q, k, v, kw, f"{label} {route}")
+                    line += (f"; vs the plain version's fp32 output max_abs_err {err:.3e} (atol/rtol "
+                             f"{FLASH_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {FLASH_BF16_REL_L2})")
+                if route == "wgmma":
+                    again = flash_ops.flash_attention_fused(q, k, v, route=route, **kw)
+                    if not torch.equal(again, got):
+                        fail(f"flash_attn {label} wgmma: two calls on the same inputs differ")
+                    line += "; two calls bit-identical"
+                print(line + " ok")
+                worst = max(worst, err)
     # control: the window one tile short drops each late row's oldest 64 keys; the bound must see it
     s = FLASH_LONG_SHAPE
     q, k, v = flash_inputs(s, torch.bfloat16)
@@ -836,37 +881,40 @@ def _profile(fn, label: str, top: int = 12) -> list:
     return events
 
 
-def phase_lm_serve(params, cfg) -> int:
+def phase_lm_serve(params, cfg) -> tuple:
     """The slice's main path: ServeEngine.generate on the full-width LM.
-    Returns the flash_attn launches of the two serving runs."""
+    Returns the flash_attn launches of the two serving runs, in all and by
+    route."""
     V, L = cfg.vocab_size, cfg.num_layers
     plan = lm_plan(cfg)
     engine = ServeEngine(cfg, params, plan=plan, device="cuda")
     rng = np.random.default_rng(0)
     engine.generate(rng.integers(3, V, size=(2, 256)), 2)  # warm-up: first cuBLAS calls, allocator
     torch.cuda.synchronize()
-    total = 0
+    total, routes = 0, dict.fromkeys(flash_ops.ROUTES, 0)
     for label, B, S, new in LM_SERVE_RUNS:
         prompts = rng.integers(3, V, size=(B, S))
-        luong_ops.luong_attention_fused.launches = lstm_ops.lstm_cell_fused.launches = 0
-        flash_ops.flash_attention_fused.launches = 0
+        _reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = engine.generate(prompts, new)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n = flash_ops.flash_attention_fused.launches
-        if n != L:
-            fail(f"serve ({label}): flash_attn launches {n} != {L} (one per layer in the prefill, none per decode step)")
+        by_route = dict(flash_ops.flash_attention_fused.launches_by_route)
+        if n != L or by_route != {"fma": 0, "mma": 0, "wgmma": L}:
+            fail(f"serve ({label}): flash_attn launches {n} ({by_route}) != {L} on the wgmma route (one per layer in "
+                 "the prefill, none per decode step)")
         if tuple(out.shape) != (B, new) or out.min().item() < 0 or out.max().item() >= V:
             fail(f"serve ({label}): bad output {tuple(out.shape)} in [{out.min().item()}, {out.max().item()}]")
         total += n
+        routes = {r: routes[r] + by_route[r] for r in routes}
         decode_tok_s = B * (new - 1) / engine.decode_s
         print(f"[lm-serve] ({label}) [{cfg.name} | {plan.cache_policy} {plan.window} | static] {B} x {S} prompt "
               f"tokens, {new} new tokens each, in {dt:.3f}s: prefill {engine.prefill_s * 1e3:.1f} ms "
               f"({B * S / engine.prefill_s:.0f} prompt tok/s), decode {engine.decode_s * 1e3:.1f} ms for "
               f"{new - 1} steps ({decode_tok_s:.1f} tok/s, {engine.decode_s / (new - 1) * 1e3:.2f} ms/step, CUDA "
-              f"graph); flash_attn launches {n} = {L} layers x 1 prefill; peak device memory "
+              f"graph); flash_attn launches {n} = {L} layers x 1 prefill, all on the wgmma route; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; tokens[0][:8] {out[0, :8].tolist()}")
     # where a prefill's and a decode step's device time goes: (a)'s prefill, then 8 decode steps
     params_c = tfm.cast_params(engine.params, cfg)
@@ -884,7 +932,7 @@ def phase_lm_serve(params, cfg) -> int:
 
     decode8()  # warm
     _profile(decode8, "8 decode steps of 4 sequences at 2048-2080 cached tokens (bf16)")
-    return total
+    return total, routes
 
 
 def phase_lm_model_paths(params, cfg):
@@ -923,7 +971,7 @@ def _flash_wrapped(wrapper):
     on the kernel's counter: they are comparison launches."""
     kernel = flash_ops.flash_attention_fused
     stand_in = lambda q, k, v, **kw: wrapper(kernel, q, k, v, **kw)  # noqa: E731
-    stand_in.launches = 0
+    stand_in.launches, stand_in.launches_by_route = 0, dict.fromkeys(flash_ops.ROUTES, 0)
     flash_ops.flash_attention_fused = stand_in
     try:
         yield
@@ -979,51 +1027,62 @@ def _attention_pairs(S: int, window) -> int:
     return w * (w + 1) // 2 + (S - w) * w
 
 
-def phase_flash_timing(launches: int, max_err: float) -> dict:
-    """flash_attn at (a)'s per-layer call, bf16, L2 flushed: the kernel, its
-    plain version, and scaled_dot_product_attention with is_causal and
-    enable_gqa (the window of 4096 does not bind at S=2048, so it is the same
-    function).  Then the kernel alone at (b)'s call."""
-    s = FLASH_PREFILL_SHAPE
+def _flash_bound(s: dict) -> tuple:
+    """The least time of a causal bf16 call at shape ``s`` (window counted):
+    q, k, v and o moved once, 4 D FLOP per attended (query, key) pair.
+    Returns (bound ms, bound_by, bytes, flops)."""
     B, S, KV, G, D = s["B"], s["S"], s["KV"], s["G"], s["D"]
-    q, k, v = flash_inputs(s, torch.bfloat16, seed=9)
-    kw = dict(causal=True, window=s["window"], group=G)
-    q4, k4, v4 = q.view(B, KV * G, S, D), k.view(B, KV, S, D), v.view(B, KV, S, D)  # head h reads kv head h // G
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
-    kernel = lambda: flash_ops.flash_attention_fused(q, k, v, **kw)  # noqa: E731
-    plain = lambda: flash_attention_plain(q, k, v, **kw)  # noqa: E731
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)  # noqa: E731
-    kernel_ms = _median_ms(kernel, 20, flush, True)
-    plain_ms = _median_ms(plain, 10, flush, True)
-    library_ms = _median_ms(library, 20, flush, True)
-    got, lib = kernel(), library()
-    max_err = max(max_err, _flash_bf16_check(got, q, k, v, kw, "timing inputs")[0])
-    lib_err = (got.float() - lib.reshape(got.shape).float()).abs().max().item()
-    pairs = B * KV * G * _attention_pairs(S, s["window"])
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * D * pairs  # q.k and p.v: two multiply-adds per (pair, d)
+    nbytes = 2 * D * (2 * B * KV * G * S + 2 * B * KV * S)
+    flops = 4 * D * B * KV * G * _attention_pairs(S, s["window"])  # q.k and p.v: two multiply-adds per (pair, d)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[timing] flash_attn at B={B} S={S} H={KV * G} KV={KV} D={D} causal bf16, median, L2 flushed: device "
-          f"time kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
-          f"(kernel vs sdpa max_abs_err {lib_err:.3e}); bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
-          f"3.35 TB/s = {t_bytes * 1e6:.2f} us, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e6:.2f} us; note: the same "
-          f"flops as fp32 FMA at 67 TFLOP/s take {flops / FP32_FLOP_PER_S * 1e6:.2f} us); kernel at "
-          f"{flops / kernel_ms / 1e9:.2f} TFLOP/s; {launches} launches in the "
-          f"serving runs (qwen3-1.7b (a) and (b), qwen3-moe-30b-a3b (a))")
-    ql, kl, vl = flash_inputs(FLASH_LONG_SHAPE, torch.bfloat16, seed=10)
-    lkw = dict(causal=True, window=FLASH_LONG_SHAPE["window"], group=FLASH_LONG_SHAPE["G"])
-    long_ms = _median_ms(lambda: flash_ops.flash_attention_fused(ql, kl, vl, **lkw), 10, flush, True)
-    lflops = 4 * D * FLASH_LONG_SHAPE["KV"] * G * _attention_pairs(FLASH_LONG_SHAPE["S"], FLASH_LONG_SHAPE["window"])
-    print(f"[timing] flash_attn at (b)'s call B=1 S=8192 window 4096 bf16: kernel {long_ms:.4f} ms "
-          f"({lflops} FLOP, {lflops / long_ms / 1e9:.2f} TFLOP/s; bound "
-          f"{lflops / BF16_FLOP_PER_S * 1e3:.4f} ms)")
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def phase_flash_timing(launches: int, routes: dict, max_err: float) -> dict:
+    """flash_attn, bf16, L2 flushed, at the serving runs' calls: (a)'s
+    per-layer call (the kernel, the old "mma" route's kernel, the plain
+    version, and scaled_dot_product_attention with is_causal and enable_gqa:
+    the window of 4096 does not bind at S=2048, so it is the same function);
+    the MoE prefill's call at G=8 (the kernel, "mma", SDPA); (b)'s call (the
+    kernel and "mma"; SDPA has no window)."""
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    for label, s, seed in (("a", FLASH_PREFILL_SHAPE, 9), ("moe", FLASH_MOE_SHAPE, 11), ("b", FLASH_LONG_SHAPE, 10)):
+        B, S, KV, G, D = s["B"], s["S"], s["KV"], s["G"], s["D"]
+        q, k, v = flash_inputs(s, torch.bfloat16, seed=seed)
+        kw = dict(causal=True, window=s["window"], group=G)
+        q4, k4, v4 = q.view(B, KV * G, S, D), k.view(B, KV, S, D), v.view(B, KV, S, D)  # head h reads kv head h // G
+        kernel = lambda: flash_ops.flash_attention_fused(q, k, v, **kw)  # noqa: E731
+        mma = lambda: flash_ops.flash_attention_fused(q, k, v, route="mma", **kw)  # noqa: E731
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)  # noqa: E731
+        t = {"kernel": _median_ms(kernel, 20, flush, True), "mma": _median_ms(mma, 20, flush, True)}
+        got = kernel()
+        max_err = max(max_err, _flash_bf16_check(got, q, k, v, kw, f"({label}) timing inputs")[0])
+        if label != "b":
+            t["library"] = _median_ms(library, 20, flush, True)
+            t["lib_err"] = (got.float() - library().reshape(got.shape).float()).abs().max().item()
+        if label == "a":
+            t["plain"] = _median_ms(lambda: flash_attention_plain(q, k, v, **kw), 10, flush, True)
+        bound_ms, bound_by, nbytes, flops = _flash_bound(s)
+        rows[label] = (t, bound_ms, bound_by)
+        print(f"[timing] flash_attn ({label}) B={B} S={S} H={KV * G} KV={KV} D={D} causal window {s['window']} bf16, "
+              f"median, L2 flushed: device time kernel (wgmma) {t['kernel']:.4f} ms, the mma route's kernel "
+              f"{t['mma']:.4f} ms"
+              + (f", plain {t['plain']:.4f} ms" if "plain" in t else "")
+              + (f", scaled_dot_product_attention {t['library']:.4f} ms (kernel vs sdpa max_abs_err "
+                 f"{t['lib_err']:.3e})" if "library" in t else ", no SDPA (it has no window)")
+              + f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s = "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {flops} FLOP at 989 TFLOP/s = "
+              f"{flops / BF16_FLOP_PER_S * 1e3:.4f} ms); kernel at {flops / t['kernel'] / 1e9:.2f} TFLOP/s, "
+              f"{t['kernel'] / bound_ms:.2f}x its bound")
+    print(f"[timing] flash_attn: {launches} launches in the serving runs (qwen3-1.7b (a) and (b), qwen3-moe-30b-a3b "
+          f"(a)), by route {routes}")
+    t, bound_ms, bound_by = rows["a"]
     return {
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "launches": launches, "launches_by_route": routes, "max_abs_err": max_err, "ms": t["kernel"],
+        "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"],
+        "mma_route_ms": t["mma"],
     }
 
 
@@ -1110,15 +1169,16 @@ def moe_config():
 
 
 def _reset_launches():
-    for fn in (luong_ops.luong_attention_fused, lstm_ops.lstm_cell_fused, flash_ops.flash_attention_fused,
-               moe_ops.moe_gemm_fused):
+    for fn in (luong_ops.luong_attention_fused, lstm_ops.lstm_cell_fused, moe_ops.moe_gemm_fused):
         fn.launches = 0
+    flash_ops.reset_launches()
 
 
 def phase_moe_serve(params, cfg) -> tuple:
     """The slice's main path: ServeEngine.generate on the MoE LM at (a)'s
-    shape.  Returns the (moe_gemm, flash_attn) launches of the run and the
-    dispatch buffer of the first MoE layer in a served decode step."""
+    shape.  Returns the moe_gemm launches of the run, its flash_attn launches
+    in all and by route, and the dispatch buffer of the first MoE layer in a
+    served decode step."""
     V, L = cfg.vocab_size, cfg.num_layers
     label, B, S, new = MOE_SERVE_RUN
     plan = lm_plan(cfg)
@@ -1134,16 +1194,18 @@ def phase_moe_serve(params, cfg) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n_moe, n_flash = moe_ops.moe_gemm_fused.launches, flash_ops.flash_attention_fused.launches
-    if n_flash != L or n_moe != 3 * L:
-        fail(f"moe serve ({label}): flash_attn launches {n_flash} != {L} (the prefill's), or moe_gemm launches "
-             f"{n_moe} != {3 * L} (the prefill's, the eager decode step's and the graph capture's)")
+    by_route = dict(flash_ops.flash_attention_fused.launches_by_route)
+    if n_flash != L or by_route != {"fma": 0, "mma": 0, "wgmma": L} or n_moe != 3 * L:
+        fail(f"moe serve ({label}): flash_attn launches {n_flash} ({by_route}) != {L} on the wgmma route (the "
+             f"prefill's), or moe_gemm launches {n_moe} != {3 * L} (the prefill's, the eager decode step's and the "
+             "graph capture's)")
     if tuple(out.shape) != (B, new) or out.min().item() < 0 or out.max().item() >= V:
         fail(f"moe serve ({label}): bad output {tuple(out.shape)} in [{out.min().item()}, {out.max().item()}]")
     print(f"[moe-serve] ({label}) [{cfg.name} x{L} layers | {plan.cache_policy} {plan.window} | static] {B} x {S} "
           f"prompt tokens, {new} new tokens each, in {dt:.3f}s: prefill {engine.prefill_s * 1e3:.1f} ms "
           f"({B * S / engine.prefill_s:.0f} prompt tok/s), decode {engine.decode_s * 1e3:.1f} ms for {new - 1} steps "
           f"({B * (new - 1) / engine.decode_s:.1f} tok/s, {engine.decode_s / (new - 1) * 1e3:.2f} ms/step, CUDA "
-          f"graph); launches flash_attn {n_flash} = {L} layers x 1 prefill, moe_gemm {n_moe} = {L} layers x (prefill "
+          f"graph); launches flash_attn {n_flash} = {L} layers x 1 prefill on the wgmma route, moe_gemm {n_moe} = {L} layers x (prefill "
           f"+ eager step + capture); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
           f"tokens[0][:8] {out[0, :8].tolist()}")
     # where a prefill's and a decode step's device time goes
@@ -1185,7 +1247,7 @@ def phase_moe_serve(params, cfg) -> tuple:
         fail(f"the decode graph's replay ran the moe_gemm kernels {per_kernel}, not both {L} times")
     print(f"[moe-serve] the decode graph's replay ran each moe_gemm kernel {L} times: "
           f"{ {k[:60]: c for k, c in per_kernel.items()} }")
-    return n_moe, n_flash, served[0]
+    return n_moe, n_flash, by_route, served[0]
 
 
 @contextlib.contextmanager
@@ -1374,7 +1436,7 @@ def main():
           f"{lm_cfg.num_kv_heads} kv heads of {lm_cfg.head_dim}, d_ff={lm_cfg.d_ff}, V={lm_cfg.vocab_size}, window "
           f"{lm_cfg.sliding_window}: {n} parameters ({n * 4 / 1e9:.2f} GB fp32), initialized in "
           f"{time.perf_counter() - t0:.1f}s")
-    flash_launches = phase_lm_serve(lm_params, lm_cfg)
+    flash_launches, flash_routes = phase_lm_serve(lm_params, lm_cfg)
     phase_lm_model_paths(lm_params, lm_cfg)
     phase_lm_bf16_paths(lm_params, lm_cfg)
     del lm_params
@@ -1393,12 +1455,13 @@ def main():
           f"{m.d_ff_expert}, capacity factor {m.capacity_factor}, V={moe_cfg.vocab_size}, window "
           f"{moe_cfg.sliding_window}: {n} parameters ({n * 4 / 1e9:.2f} GB fp32), initialized in "
           f"{time.perf_counter() - t0:.1f}s")
-    moe_launches, moe_flash_launches, decode_buf = phase_moe_serve(moe_params, moe_cfg)
+    moe_launches, moe_flash_launches, moe_flash_routes, decode_buf = phase_moe_serve(moe_params, moe_cfg)
     phase_moe_model_paths(moe_params, moe_cfg)
     phase_moe_bf16_paths(moe_params, moe_cfg)
     del moe_params
     torch.cuda.empty_cache()
-    records.append(phase_flash_timing(flash_launches + moe_flash_launches, flash_err))
+    records.append(phase_flash_timing(flash_launches + moe_flash_launches,
+                                      {r: flash_routes[r] + moe_flash_routes[r] for r in flash_routes}, flash_err))
     records.append(phase_moe_timing(moe_launches, moe_err, decode_buf))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))

@@ -6,7 +6,11 @@ each cell of :func:`run_stacked_lstm`:
 * ``"torch"``: the plain cell with the JAX package's cast points: the gate
   GEMMs run and sum in the compute dtype, then upcast to fp32; the h/c
   carries stay fp32; h is returned in the compute dtype.  The weights are
-  cast to the compute dtype once per layer call, not once per timestep.
+  cast to the compute dtype once per layer call, not once per timestep;
+  the gate products take the fp32 masters as their differentiable inputs
+  beside that copy (:class:`_GateProducts`), so each step's weight grads
+  reach the masters in fp32 and autograd sums the timesteps in fp32, as
+  JAX's scan does.
 * ``"cuda"``: the fused cell ``kernels/lstm_cell`` (its CUDA kernels on the
   card): x in the compute dtype, h and c fp32 carries, and the weights cast
   to the compute dtype once per layer call (``ops.cast_weights``), as the
@@ -54,11 +58,48 @@ def cast_cell(p: dict, dt: torch.dtype) -> dict:
     }
 
 
-def cell_step(pc: dict, x_t: torch.Tensor, state: LSTMCellState) -> Tuple[LSTMCellState, torch.Tensor]:
-    """One plain cell step on weights that :func:`cast_cell` prepared."""
+def _gates(x_t, h, pc: dict) -> torch.Tensor:
+    return torch.matmul(x_t, pc["wx"]) + torch.matmul(h, pc["wh"]) + pc["b"]
+
+
+class _GateProducts(torch.autograd.Function):
+    """x_t wx + h wh + b on the compute-dtype copies ``pc``, whose weight
+    grads go to the fp32 masters ``wx``, ``wh``, ``b`` in fp32: each step's
+    term is computed in the compute dtype, as autograd would, and returned in
+    fp32, so the sum over timesteps runs in fp32."""
+
+    @staticmethod
+    def forward(ctx, x_t, h, wx, wh, b, pc):
+        ctx.save_for_backward(x_t, h, pc["wx"], pc["wh"])
+        ctx.master_shapes = (wx.shape, wh.shape, b.shape)
+        return _gates(x_t, h, pc)
+
+    @staticmethod
+    def backward(ctx, dg):
+        x_t, h, wxc, whc = ctx.saved_tensors
+        sx, sh, sb = ctx.master_shapes
+        need = ctx.needs_input_grad
+        dx = torch.matmul(dg, wxc.t()) if need[0] else None
+        dh = torch.matmul(dg, whc.t()) if need[1] else None
+        dwx = torch.matmul(x_t.t(), dg).float().reshape(sx) if need[2] else None
+        dwh = torch.matmul(h.t(), dg).float().reshape(sh) if need[3] else None
+        db = dg.sum(0).float().reshape(sb) if need[4] else None
+        return dx, dh, dwx, dwh, db, None
+
+
+def cell_step(pc: dict, x_t: torch.Tensor, state: LSTMCellState, masters: Optional[dict] = None
+              ) -> Tuple[LSTMCellState, torch.Tensor]:
+    """One plain cell step on weights that :func:`cast_cell` prepared.  With
+    ``masters`` (the fp32 weights ``pc`` was cast from) the weight grads go
+    to the masters in fp32 rather than to ``pc``."""
     dt = x_t.dtype
     B = x_t.shape[0]
-    gates = (torch.matmul(x_t, pc["wx"]) + torch.matmul(state.h.to(dt), pc["wh"]) + pc["b"]).float().view(B, 4, -1)
+    h = state.h.to(dt)
+    if masters is None:
+        gates = _gates(x_t, h, pc)
+    else:
+        gates = _GateProducts.apply(x_t, h, masters["wx"], masters["wh"], masters["b"], pc)
+    gates = gates.float().view(B, 4, -1)
     i, f, g, o = gates.unbind(1)
     c = torch.sigmoid(f) * state.c + torch.sigmoid(i) * torch.tanh(g)
     h = torch.sigmoid(o) * torch.tanh(c)
@@ -93,9 +134,10 @@ def run_lstm_layer(p: dict, xs: torch.Tensor, state: Optional[LSTMCellState] = N
             hs.append(h.to(xs.dtype))
         state = LSTMCellState(h=h, c=c)
     elif stage_kernel == "torch":
-        pc = cast_cell(p, xs.dtype)
+        with torch.no_grad():
+            pc = cast_cell(p, xs.dtype)  # once per layer call; the grads go to the masters
         for t in range(S):
-            state, h = cell_step(pc, xs[:, t], state)
+            state, h = cell_step(pc, xs[:, t], state, masters=p)
             hs.append(h)
     else:
         raise ValueError(f"stage_kernel must be one of {STAGE_KERNELS}, got {stage_kernel!r}")

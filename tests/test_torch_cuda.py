@@ -183,9 +183,11 @@ def test_luong_kernel_matches_plain(cuda):
                                        err_msg=f"{s} {dname}")
 
 
-# kernel_harness.py's flash_attn shapes (blocks dropped), a ragged S != T
-# shape, and the serving prefill's full-width per-layer call (qwen3-1.7b:
-# B=4, S=2048, 16 q heads on 8 kv heads, D=128, window 4096)
+# kernel_harness.py's flash_attn shapes (blocks dropped), ragged S != T
+# shapes, the serving prefill's full-width per-layer call (qwen3-1.7b:
+# B=4, S=2048, 16 q heads on 8 kv heads, D=128, window 4096), then shapes at
+# the wgmma kernel's edges: ragged S != T with odd G, D=64 at G=1 without the
+# causal mask, one row, G=8 with a window
 FLASH_SHAPES = [
     dict(B=2, S=128, T=128, KV=2, G=2, D=32, causal=True, window=None),
     dict(B=1, S=256, T=256, KV=1, G=4, D=64, causal=True, window=64),
@@ -196,6 +198,10 @@ FLASH_SHAPES = [
     dict(B=2, S=77, T=131, KV=2, G=3, D=40, causal=False, window=50),
     dict(B=2, S=77, T=131, KV=2, G=3, D=48, causal=True, window=50),
     dict(B=4, S=2048, T=2048, KV=8, G=2, D=128, causal=True, window=4096),
+    dict(B=2, S=77, T=131, KV=2, G=3, D=128, causal=True, window=50),
+    dict(B=2, S=200, T=200, KV=3, G=1, D=64, causal=False, window=None),
+    dict(B=2, S=1, T=1, KV=2, G=2, D=128, causal=True, window=None),
+    dict(B=1, S=300, T=300, KV=2, G=8, D=128, causal=True, window=100),
 ]
 
 
@@ -207,8 +213,9 @@ FLASH_BF16_REL_L2 = 1e-2
 
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain(cuda, dname):
-    """fp32 runs the FMA kernel; bf16 the tensor-core kernel where D is a
-    multiple of 16 (the FMA kernel at D=8 and D=40)."""
+    """fp32 runs the FMA kernel; bf16 the wgmma kernel at D=64 and 128, the
+    mma.sync kernel at other multiples of 16 and the FMA kernel at D=8 and
+    D=40."""
     for s in FLASH_SHAPES:
         rng = np.random.default_rng(0)
         B, S, T, KV, G, D = s["B"], s["S"], s["T"], s["KV"], s["G"], s["D"]
@@ -229,6 +236,43 @@ def test_flash_kernel_matches_plain(cuda, dname):
                                        err_msg=f"{s} bf16 vs the plain version's fp32 output")
             rel = ((got.float() - want32).norm() / want32.norm()).item()
             assert rel <= FLASH_BF16_REL_L2, (s, rel)
+
+
+def test_flash_routes_and_determinism(cuda):
+    """bf16 on every route that takes the inputs: the launch counts on the
+    route it names (the pick when none is named), the output matches the
+    plain version's fp32 output, and two calls are bit-identical.  The entry
+    point itself refuses a route that does not fit (fp32 on the wgmma
+    kernel, D=40 on the mma.sync kernel)."""
+    import ctypes
+
+    rng = np.random.default_rng(3)
+    for B, S, T, KV, G, D, causal, window in [(2, 77, 131, 2, 3, 128, True, 50), (1, 300, 300, 2, 8, 128, True, 100),
+                                              (2, 200, 200, 3, 1, 64, False, None), (1, 96, 96, 1, 2, 32, True, None)]:
+        f = lambda shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", torch.bfloat16)  # noqa: E731
+        q, k, v = f((B * KV * G, S, D)), f((B * KV, T, D)), f((B * KV, T, D))
+        kw = dict(causal=causal, window=window, group=G)
+        want = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        for route in [None] + [r for r in flash_ops.ROUTES if flash_ops.route_fits(r, torch.bfloat16, D)]:
+            named = route or flash_ops.pick_route(torch.bfloat16, D)
+            before = dict(flash_ops.flash_attention_fused.launches_by_route)
+            got = flash_ops.flash_attention_fused(q, k, v, route=route, **kw)
+            again = flash_ops.flash_attention_fused(q, k, v, route=route, **kw)
+            torch.cuda.synchronize()
+            after = flash_ops.flash_attention_fused.launches_by_route
+            assert {r: after[r] - before[r] for r in after} == {r: 2 * (r == named) for r in after}, (D, route)
+            assert torch.equal(got, again), (D, named)
+            np.testing.assert_allclose(got.float().cpu().numpy(), want.cpu().numpy(), **FLASH_BF16_TOL,
+                                       err_msg=f"D={D} {named}")
+            assert ((got.float() - want).norm() / want.norm()).item() <= FLASH_BF16_REL_L2, (D, named)
+    lib = flash_ops._library()
+    x32, x40 = torch.zeros(2, 8, 128, device="cuda"), torch.zeros(2, 8, 40, device="cuda", dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    for x, dtype_code, route in ((x32, 0, flash_ops.ROUTES["wgmma"]), (x40, 1, flash_ops.ROUTES["mma"])):
+        ptr = x.data_ptr()
+        err = lib.flash_attn_forward(ptr, ptr, ptr, ptr, 2, 8, 8, x.shape[-1], 1, 1, 0, dtype_code, route,
+                                     ctypes.c_float(1.0), stream)
+        assert err != 0, (x.dtype, route)
 
 
 def test_flash_flat_layout_matches_grouped(cuda):

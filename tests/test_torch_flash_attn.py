@@ -10,7 +10,9 @@ JAX package on the CPU, where the wrapper runs its plain version.
   against ``attend``, which broadcasts kv per group (``_match_kv``);
 * ``attend`` at the serving prefill's ``q_chunk=128`` with S not a multiple
   of 128, on both of the port's attention paths;
-* ragged kernel-layout shapes (S != T) against the dense oracle.
+* ragged kernel-layout shapes (S != T) against the dense oracle;
+* the wrapper's choice of kernel (route) for every (dtype, head dim) pair,
+  and its refusal of a named route that does not take the inputs.
 
 Inputs come from a numpy seed; the JAX Pallas kernel does not run on this
 jax, so the JAX side is its dense reference and the chunked attention.
@@ -220,3 +222,34 @@ def test_adapter_hands_the_kernel_contiguous_inputs(monkeypatch, B, flat):
         q = q.reshape(B, 24, 4, 1, 16)
     out = ops.flash_attention(q, k, v, causal=True, window=None)
     assert calls == [2] and out.shape == q.shape
+
+
+ROUTE_DIMS = [8, 16, 40, 48, 64, 80, 96, 112, 128]
+
+
+@pytest.mark.parametrize("D", ROUTE_DIMS)
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_wrapper_route_choice_and_refusal(dname, D):
+    """bf16 at D = 64 or 128 picks the wgmma kernel, bf16 at other multiples
+    of 16 the mma.sync kernel, the rest the FMA kernel.  A named route that
+    takes the inputs runs (on the CPU: the plain version, no launch); one
+    that does not raises, on the CPU as on the card, before any launch."""
+    dtype = DTYPES[dname][1]
+    bf16 = dtype == torch.bfloat16
+    want = "wgmma" if bf16 and D in (64, 128) else "mma" if bf16 and D % 16 == 0 else "fma"
+    assert ops.pick_route(dtype, D) == want
+    fits = {"wgmma": bf16 and D in (64, 128), "mma": bf16 and D % 16 == 0, "fma": True}
+    assert {r: ops.route_fits(r, dtype, D) for r in ops.ROUTES} == fits
+    (q, k, v), _ = _inputs([(2, 8, D), (1, 8, D), (1, 8, D)], "float32", seed=12)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    plain = flash_attention_plain(q, k, v, causal=True, window=None, group=2)
+    before = (ops.flash_attention_fused.launches, dict(ops.flash_attention_fused.launches_by_route))
+    for route, ok in fits.items():
+        if ok:
+            assert torch.equal(ops.flash_attention_fused(q, k, v, group=2, route=route), plain)
+        else:
+            with pytest.raises(ValueError, match=f"'{route}' kernel does not take"):
+                ops.flash_attention_fused(q, k, v, group=2, route=route)
+    with pytest.raises(ValueError, match="route must be one of"):
+        ops.flash_attention_fused(q, k, v, group=2, route="tma")
+    assert (ops.flash_attention_fused.launches, ops.flash_attention_fused.launches_by_route) == before

@@ -15,9 +15,11 @@ stacked use against the JAX package's, on the CPU.
 * ``run_stacked_lstm(stage_kernel="cuda")`` against a JAX loop that feeds
   the Pallas cell the compute dtype's values (x and the weights cast to it,
   h/c fp32, h cast before the next layer; at fp32 this is the pipeline's
-  stage-cell feed, ``repro/core/pipeline.py:97-110``): outputs and grads; and
-  at bf16 over 32 timesteps, that the fp32 masters' grads are fp32 sums over
-  the timesteps, as JAX's are, and not bf16 sums.
+  stage-cell feed, ``repro/core/pipeline.py:97-110``): outputs and grads; and,
+  on both stage paths, at bf16 over 32 timesteps, that the fp32 masters'
+  grads are fp32 sums over the timesteps, as JAX's are, and not bf16 sums;
+* the ``"torch"`` stage path's forward, bit for bit the plain loop over the
+  once-cast copy.
 * The tensor-core kernel's packed weight layout and ``cast_weights``.
 
 The CUDA kernel itself is held against the plain version on the card by
@@ -235,23 +237,68 @@ def _one_layer(seed, B, S, In, H):
     return layer, rng.normal(size=(B, S, In)).astype(np.float32), rng.normal(size=(B, S, H)).astype(np.float32)
 
 
-def test_stacked_lstm_weight_grads_are_fp32_sums_over_timesteps():
+def _bf16_round(a):
+    return jax.lax.reduce_precision(a, exponent_bits=8, mantissa_bits=7)
+
+
+@jax.custom_vjp
+def _bf16(a):
+    """A bf16 value held in fp32: rounded on the way in, and its cotangent
+    rounded on the way back, as a bf16 tensor's grad is in PyTorch."""
+    return _bf16_round(a)
+
+
+_bf16.defvjp(lambda a: (_bf16_round(a), None), lambda _, ct: (_bf16_round(ct),))
+
+
+def _jax_meshless_bf16_loss(p, x, w_out):
+    """``repro/models/lstm.py::lstm_cell``'s arithmetic (the masters cast to
+    bf16 inside each step, the gate products and their sum in bf16, the
+    nonlinearities and the carries fp32) scanned over x's timesteps, with
+    every bf16 rounding written out where a bf16 framework makes it, both
+    ways: each product and sum, and each cotangent that reaches a bf16 value
+    (so each step's weight-grad term is rounded to bf16, then summed over the
+    steps in fp32, as the scan sums it).  XLA on the CPU keeps some of these
+    sums in fp32, so the package's own cell differs from PyTorch's plain cell
+    by one bf16 step in the forward already."""
+    B, S, _ = x.shape
+    H = p["wh"].shape[0]
+    wx, wh, b = p["wx"].reshape(p["wx"].shape[0], -1), p["wh"].reshape(H, -1), p["b"].reshape(-1)
+    h = c = jnp.zeros((B, H), jnp.float32)
+    loss = 0.0
+    for t in range(S):
+        g = _bf16(_bf16(_bf16(_bf16(x[:, t]) @ _bf16(wx)) + _bf16(_bf16(h) @ _bf16(wh))) + _bf16(b)).reshape(B, 4, H)
+        c = jax.nn.sigmoid(g[:, 1]) * c + jax.nn.sigmoid(g[:, 0]) * jnp.tanh(g[:, 2])
+        h = jax.nn.sigmoid(g[:, 3]) * jnp.tanh(c)
+        loss = loss + jnp.sum(_bf16(h) * w_out[:, t])
+    return loss
+
+
+@pytest.mark.parametrize("stage_kernel", lstm.STAGE_KERNELS)
+def test_stacked_lstm_weight_grads_are_fp32_sums_over_timesteps(stage_kernel):
     """bf16 over 32 timesteps: the fp32 masters' grads from
-    ``run_stacked_lstm(stage_kernel="cuda")`` (the masters cast once per
-    layer call) against JAX's from a loop that casts the masters to bf16
-    inside each step, whose scan sums the steps' terms in fp32.
+    ``run_stacked_lstm`` on either stage path (the masters cast once per
+    layer call) against JAX's from a scan that casts the masters to bf16
+    inside each step and sums the steps' terms in fp32: over the Pallas cell
+    for ``"cuda"``, over the meshless cell (``repro/models/lstm.py``, whose
+    gate products sum in bf16 as the plain cell's do) for ``"torch"``.
 
     Tolerance, per leaf: 2^-8 of the largest JAX grad.  JAX's backward rounds
     each step's term to bf16 (a relative error of at most 2^-9); the port
     keeps them in fp32, and the two differ by those roundings, dominated by
     the largest terms.  The bf16-summed alternative (the bf16 copy as the
     cell's input, so autograd sums the 32 terms into it in bf16, rounding the
-    running sum at every step) must miss the same tolerance."""
+    running sum at every step) must miss the same tolerance: the fused cell
+    on the copies for ``"cuda"``, the plain cell on :func:`lstm.cast_cell`'s
+    copy for ``"torch"``."""
     B, S, In, H = 3, 32, 8, 16
     layer, xs, w_out = _one_layer(7, B, S, In, H)
     bf16 = jnp.bfloat16
 
     def jloss(p, x):
+        if stage_kernel == "torch":
+            return _jax_meshless_bf16_loss(p, x.astype(jnp.float32), w_out)
+
         def step(carry, x_t):
             h, c = jax_fused(x_t, *carry, p["wx"].astype(bf16), p["wh"].astype(bf16), p["b"].astype(bf16),
                              interpret=True)
@@ -266,15 +313,23 @@ def test_stacked_lstm_weight_grads_are_fp32_sums_over_timesteps():
     w = torch.from_numpy(w_out)
 
     masters = {k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()}
-    hs, _ = lstm.run_stacked_lstm([masters], tx, stage_kernel="cuda")
+    hs, _ = lstm.run_stacked_lstm([masters], tx, stage_kernel=stage_kernel)
     fp32_sums = torch.autograd.grad((hs.float() * w).sum(), [masters[k] for k in ("wx", "wh", "b")])
 
     masters2 = {k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()}
-    copies = {k: v.to(torch.bfloat16) for k, v in masters2.items()}
-    h, c, outs = torch.zeros(B, H), torch.zeros(B, H), []
-    for t in range(S):
-        h, c = ops.lstm_cell_fused(tx[:, t].contiguous(), h, c, copies["wx"], copies["wh"], copies["b"])
-        outs.append(h.to(torch.bfloat16))
+    outs = []
+    if stage_kernel == "cuda":
+        copies = {k: v.to(torch.bfloat16) for k, v in masters2.items()}
+        h, c = torch.zeros(B, H), torch.zeros(B, H)
+        for t in range(S):
+            h, c = ops.lstm_cell_fused(tx[:, t].contiguous(), h, c, copies["wx"], copies["wh"], copies["b"])
+            outs.append(h.to(torch.bfloat16))
+    else:
+        pc = lstm.cast_cell(masters2, torch.bfloat16)  # with grad: autograd sums into the copy in bf16
+        state = lstm.init_lstm_state(B, H)
+        for t in range(S):
+            state, h = lstm.cell_step(pc, tx[:, t], state)
+            outs.append(h)
     assert torch.equal(torch.stack(outs, 1), hs)  # the same forward
     bf16_sums = torch.autograd.grad((torch.stack(outs, 1).float() * w).sum(), [masters2[k] for k in ("wx", "wh", "b")])
 
@@ -285,6 +340,38 @@ def test_stacked_lstm_weight_grads_are_fp32_sums_over_timesteps():
         _close(g, want, tol, f"d{name}: fp32 sums")
         with pytest.raises(AssertionError):
             _close(g16, want, tol, f"d{name}: bf16 sums")
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_torch_stage_path_forward_is_the_plain_loop(dt):
+    """The ``"torch"`` stage path's forward is bit for bit the loop of
+    :func:`lstm.cell_step` over :func:`lstm.cast_cell`'s copy, as it was before
+    its weight grads went to the masters; its x and h grads too, and at fp32
+    its weight grads."""
+    B, S, In, H = 3, 9, 8, 16
+    layer, xs, w_out = _one_layer(11, B, S, In, H)
+    tdt = TORCH_DT[dt]
+    w = torch.from_numpy(w_out)
+    masters = {k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()}
+    tx = torch.from_numpy(xs).to(tdt).requires_grad_()
+    hs, fin = lstm.run_lstm_layer(masters, tx, stage_kernel="torch")
+    grads = torch.autograd.grad((hs.float() * w).sum(), [tx] + [masters[k] for k in ("wx", "wh", "b")])
+
+    masters2 = {k: torch.from_numpy(v).requires_grad_() for k, v in layer.items()}
+    tx2 = torch.from_numpy(xs).to(tdt).requires_grad_()
+    pc = lstm.cast_cell(masters2, tdt)
+    state, outs = lstm.init_lstm_state(B, H), []
+    for t in range(S):
+        state, h = lstm.cell_step(pc, tx2[:, t], state)
+        outs.append(h)
+    want = torch.stack(outs, 1)
+    assert hs.dtype == tdt and torch.equal(hs, want)
+    assert torch.equal(fin.h, state.h) and torch.equal(fin.c, state.c)
+    want_grads = torch.autograd.grad((want.float() * w).sum(), [tx2] + [masters2[k] for k in ("wx", "wh", "b")])
+    assert torch.equal(grads[0], want_grads[0])  # the input's grad: the same products, the same sum
+    if dt == "float32":  # every sum already fp32: the weight grads are the same numbers
+        for g, wg in zip(grads[1:], want_grads[1:]):
+            torch.testing.assert_close(g, wg, atol=1e-6, rtol=1e-6)
 
 
 def test_pack_weights_layout():
