@@ -67,29 +67,37 @@ Phases, each printed as it runs; any failure exits nonzero:
     fp32 output on its own inputs, and the last-position logits against the
     plain path's (relative L2); at (b) a control with the kernel's window one
     tile short must miss the logits bound;
-14. ``moe_gemm`` kernel vs plain, fp32 (the FMA kernels) and bf16 (the
-    tensor-core kernels; the FMA kernels where F is not a multiple of 8): the
-    ``tests/kernel_harness.py`` shapes, a shape ragged in every tile, and the
-    MoE serving run's two calls, prefill [128, 641, 2048] x [128, 2048, 768]
-    and decode (C=1); empty slots must come back exactly zero.  bf16 is also
-    held against the plain version's fp32 output on the same bf16 inputs
-    (MOE_BF16_TOL, relative L2), and a control that drops the last 64
-    columns of F must miss that bound;
+14. ``moe_gemm`` kernel vs plain, on every route that takes the inputs:
+    fp32 on the FMA kernels ("fma"); bf16 on the wgmma kernels ("wgmma", d
+    and F multiples of 64), the decode kernels ("decode", the same at C <=
+    16), the mma.sync kernels ("mma", multiples of 8) and the FMA
+    kernels: the ``tests/kernel_harness.py`` shapes, a shape ragged in every
+    tile, the MoE serving run's two calls, prefill [128, 641, 2048] x [128,
+    2048, 768] and decode (C=1), three shapes at the wide routes' edges and
+    the decode route at C of 2-16; each without and with ``rows`` (0, C and
+    values between), with NaN and 1e4 planted past ``rows[e]``; empty slots
+    and the rows past ``rows[e]`` must come back exactly zero, and each
+    launch must count on its route.  bf16 is also held against the plain
+    version's fp32 output on the same bf16 inputs (MOE_BF16_TOL, relative
+    L2), and a control that drops the last 64 columns of F must miss that
+    bound;
 15. MoE serving: ``qwen3-moe-30b-a3b`` at full width, its depth cut to 8 of
     48 layers (bf16 over fp32 masters, random weights from seed 0), through
     ``ServeEngine.generate`` at (a)'s shape: 4 prompts of 2048 tokens, 32 new
     tokens; exactly 8 ``flash_attn`` launches (the prefill, all on the wgmma
     route) and 24
-    ``moe_gemm`` launches (8 in the prefill, 8 in the eager decode step, 8 in
-    the capture of the CUDA graph; the replays launch from the graph); then
-    one prefill and 8 eager decode steps under ``torch.profiler``, and one
-    replay of a captured decode graph, whose kernels must include the two
-    ``moe_gemm`` kernels 8 times each;
+    ``moe_gemm`` launches (8 in the prefill, on the wgmma route; 8 in the
+    eager decode step and 8 in the capture of the CUDA graph, on the decode
+    route; the replays launch from the graph); then one prefill and 8 eager
+    decode steps under ``torch.profiler``, and one replay of a captured
+    decode graph, whose kernels must include the decode route's two
+    ``moe_gemm`` kernels 8 times each and no other ``moe_gemm`` kernel;
 16. kernel path vs plain path in the MoE LM, fp32: one prefill of 2 prompts
     of 512 tokens (last-position logits within 1e-4) and 8 greedy tokens
     through ``ServeEngine``, graphed and eager;
 17. kernel path vs plain path in the MoE LM, bf16, at (a): each of the 8
-    ``moe_gemm`` calls and each of the 8 ``flash_attn`` calls of the prefill
+    ``moe_gemm`` calls (with the rows the dispatch passes; zeros past them)
+    and each of the 8 ``flash_attn`` calls of the prefill
     against its plain version's fp32 output on its own inputs, and the
     last-position logits against the plain path's (relative L2), with two
     controls that must miss that bound: 64 columns of F dropped in every
@@ -100,15 +108,16 @@ Phases, each printed as it runs; any failure exits nonzero:
     ``scaled_dot_product_attention`` (the library yardstick, used nowhere in
     the port), at the MoE prefill's call (G=8) against the mma route's
     kernel and SDPA, and at (b)'s against the mma route's kernel; ``moe_gemm`` at the
-    MoE prefill's call, at a decode step's call on a dense buffer (every
-    expert has a row) and on the dispatch buffer of a served decode step
-    (its bound counts only the experts with a row), against its plain
-    version and, as a yardstick used nowhere in the port, ``torch.bmm`` x 3
-    plus the gate.
+    MoE prefill's call on a dense buffer and on a served prefill's layer-0
+    buffer with its rows, and at a decode step's call on a dense buffer
+    (every expert has a row) and on a served step's buffer with its rows
+    (the bounds count only the rows and experts with a slot), against the
+    first tensor-core kernels (the mma route), its plain version and, as a yardstick used
+    nowhere in the port, ``torch.bmm`` x 3 plus the gate.
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
 launches of the serving runs and the training run, each counted from 0
-around its run; ``flash_attn`` also by route), the ``nvidia-smi`` name and
+around its run; ``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
 power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
 Without CUDA, or without the repository beside it, it exits nonzero and
@@ -241,6 +250,11 @@ MOE_HARNESS_SHAPES = [
 MOE_RAGGED_SHAPE = dict(E=2, C=70, d=40, F=72)
 MOE_PREFILL_SHAPE = dict(E=128, C=641, d=2048, F=768)
 MOE_DECODE_SHAPE = dict(E=128, C=1, d=2048, F=768)
+# shapes for the "wgmma" and "decode" routes (d and F multiples of 64): a row
+# tile whose second half holds no row, column tiles past F and d, several row
+# tiles of C=641; then the decode route at C of 2-16 at the model's widths
+MOE_WIDE_SHAPES = [dict(E=2, C=130, d=128, F=128), dict(E=3, C=200, d=320, F=192), dict(E=5, C=641, d=256, F=384)]
+MOE_DECODE_C_SHAPES = [dict(E=16, C=c, d=2048, F=768) for c in (2, 3, 5, 8, 12, 16)]
 # bf16 moe_gemm against the plain version's fp32 output on the same bf16
 # inputs: only the kernel's own rounding is left (h and the output in bf16)
 MOE_BF16_TOL = dict(atol=1e-2, rtol=1e-2)
@@ -1103,11 +1117,26 @@ def moe_inputs(s: dict, dtype: torch.dtype, seed: int = 0):
     return tuple(t.to(dtype) for t in (x, w1, wg, w2))
 
 
-def _moe_bf16_check(got, args, label: str) -> tuple:
+def moe_rows(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """rows int32 [E] on the card (0 for expert 0, C for expert 1, others
+    drawn from [0, C]), and garbage planted in x past rows[e], in place: 1e4,
+    and NaN in every other such row.  The kernel must return exact zeros
+    there."""
+    E, C = x.shape[:2]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randint(0, C + 1, (E,), generator=gen, device="cuda").to(torch.int32)
+    rows[0], rows[min(1, E - 1)] = 0, C
+    dead = torch.arange(C, device="cuda")[None, :] >= rows[:, None]
+    x[dead] = 1e4
+    x[:, ::2][dead[:, ::2]] = float("nan")
+    return rows
+
+
+def _moe_bf16_check(got, args, label: str, rows=None) -> tuple:
     """A bf16 moe_gemm output against the plain version's fp32 output on the
     same bf16 inputs: MOE_BF16_TOL elementwise and MOE_BF16_REL_L2.  Returns
     (max_abs_err, relative L2 error)."""
-    want = moe_gemm_plain(*(t.float() for t in args))
+    want = moe_gemm_plain(*(t.float() for t in args), rows)
     err, rel = (got.float() - want).abs().max().item(), _rel_l2(got, want)
     if not torch.allclose(got.float(), want, **MOE_BF16_TOL) or rel > MOE_BF16_REL_L2:
         fail(f"moe_gemm {label} bf16 vs the plain version's fp32 output: max_abs_err {err:.3e} "
@@ -1115,41 +1144,72 @@ def _moe_bf16_check(got, args, label: str) -> tuple:
     return err, rel
 
 
-def _moe_cut(x, w1, wg, w2):
+def _moe_cut(x, w1, wg, w2, rows=None):
     """The kernel with the last MOE_CONTROL_COLS columns of F dropped: a
     planted fault for the controls."""
     F = w1.shape[2] - MOE_CONTROL_COLS
-    return moe_ops.moe_gemm_fused(x, w1[:, :, :F].contiguous(), wg[:, :, :F].contiguous(), w2[:, :F].contiguous())
+    return moe_ops.moe_gemm_fused(x, w1[:, :, :F].contiguous(), wg[:, :, :F].contiguous(), w2[:, :F].contiguous(),
+                                  rows)
+
+
+def _moe_route_check(label: str, s: dict, dname: str, route: str, with_rows: bool) -> tuple:
+    """One call on ``route`` against the plain version; returns (max_abs_err
+    against the plain version in the inputs' dtype, and in bf16 against its
+    fp32 output and the relative L2 error), or fails."""
+    dtype = DTYPES[dname]
+    args = moe_inputs(s, dtype)
+    rows = moe_rows(args[0]) if with_rows else None
+    before = moe_ops.moe_gemm_fused.launches_by_route[route]
+    got = moe_ops.moe_gemm_fused(*args, rows, route=route)
+    torch.cuda.synchronize()
+    tag = f"moe_gemm {label} {dname} {route}{' rows' if with_rows else ''}"
+    if moe_ops.moe_gemm_fused.launches_by_route[route] != before + 1:
+        fail(f"{tag}: the launch did not count on its route")
+    if got.dtype != dtype or got.shape != args[0].shape:
+        fail(f"{tag}: got {got.dtype} {tuple(got.shape)}")
+    if not torch.isfinite(got.float()).all():
+        fail(f"{tag}: non-finite output")
+    if s["C"] > 3 and torch.count_nonzero(got[:, 2:4]).item():
+        fail(f"{tag}: empty slots did not come back zero")
+    if with_rows:
+        dead = torch.arange(s["C"], device="cuda")[None, :] >= rows[:, None]
+        if torch.count_nonzero(got[dead]).item():
+            fail(f"{tag}: the rows past rows[e] (NaN and 1e4 planted) are not exact zeros")
+    want = moe_gemm_plain(*args, rows)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL_TIGHT[dname]):
+        fail(f"moe_gemm kernel disagrees with its plain version at {tag}: {err:.3e}")
+    if dname == "bfloat16":
+        return (err, *_moe_bf16_check(got, args, tag, rows))
+    return err, err, 0.0
 
 
 def phase_moe_parity() -> float:
-    """Returns the worst max_abs_err: fp32 against the plain version, bf16
-    against the plain version's fp32 output."""
+    """Every route that takes a shape, with rows and without.  Returns the
+    worst max_abs_err: fp32 against the plain version, bf16 against the
+    plain version's fp32 output."""
     worst = 0.0
     cases = [(f"harness-{i}", s) for i, s in enumerate(MOE_HARNESS_SHAPES)]
     cases += [("ragged", MOE_RAGGED_SHAPE), ("prefill", MOE_PREFILL_SHAPE), ("decode", MOE_DECODE_SHAPE)]
+    cases += [(f"wide-{i}", s) for i, s in enumerate(MOE_WIDE_SHAPES)]
+    cases += [(f"decode-C{s['C']}", s) for s in MOE_DECODE_C_SHAPES]
+    n = 0
     for label, s in cases:
         for dname, dtype in DTYPES.items():
-            args = moe_inputs(s, dtype)
-            got = moe_ops.moe_gemm_fused(*args)
-            torch.cuda.synchronize()
-            want = moe_gemm_plain(*args)
-            if got.dtype != dtype or got.shape != args[0].shape:
-                fail(f"moe_gemm {label} {dname}: got {got.dtype} {tuple(got.shape)}")
-            if not torch.isfinite(got.float()).all():
-                fail(f"moe_gemm {label} {dname}: non-finite output")
-            if s["C"] > 3 and torch.count_nonzero(got[:, 2:4]).item():
-                fail(f"moe_gemm {label} {dname}: empty slots did not come back zero")
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.allclose(got.float(), want.float(), **TOL_TIGHT[dname]):
-                fail(f"moe_gemm kernel disagrees with its plain version at {label} {dname}: {err:.3e}")
-            line = f"[parity] moe_gemm {label} {s} {dname}: max_abs_err {err:.3e} (atol/rtol {TOL_TIGHT[dname]['atol']})"
-            if dname == "bfloat16":
-                err, rel = _moe_bf16_check(got, args, label)
-                line += (f"; vs the plain version's fp32 output max_abs_err {err:.3e} (atol/rtol "
-                         f"{MOE_BF16_TOL['atol']}), relative L2 {rel:.3e} (bound {MOE_BF16_REL_L2})")
-            print(line + " ok")
-            worst = max(worst, err)
+            for route in moe_ops.ROUTES:
+                if not moe_ops.route_fits(route, dtype, s["E"], s["C"], s["d"], s["F"]):
+                    continue
+                res = [_moe_route_check(label, s, dname, route, with_rows) for with_rows in (False, True)]
+                n += 2
+                line = (f"[parity] moe_gemm {label} {s} {dname} {route}: vs plain max_abs_err "
+                        f"{max(r[0] for r in res):.3e} (atol/rtol {TOL_TIGHT[dname]['atol']})")
+                if dname == "bfloat16":
+                    line += (f"; vs the plain version's fp32 output max_abs_err {max(r[1] for r in res):.3e} "
+                             f"(atol/rtol {MOE_BF16_TOL['atol']}), relative L2 {max(r[2] for r in res):.3e} (bound "
+                             f"{MOE_BF16_REL_L2})")
+                print(line + "; without and with rows (exact zeros past rows[e]) ok")
+                worst = max(worst, *(r[1] for r in res))
+    print(f"[parity] moe_gemm: {n} calls checked, every route that takes each shape, with and without rows")
     # control: 64 columns of F dropped; the bound must see it
     args = moe_inputs(MOE_PREFILL_SHAPE, torch.bfloat16)
     short = _moe_cut(*args)
@@ -1169,16 +1229,18 @@ def moe_config():
 
 
 def _reset_launches():
-    for fn in (luong_ops.luong_attention_fused, lstm_ops.lstm_cell_fused, moe_ops.moe_gemm_fused):
+    for fn in (luong_ops.luong_attention_fused, lstm_ops.lstm_cell_fused):
         fn.launches = 0
     flash_ops.reset_launches()
+    moe_ops.reset_launches()
 
 
 def phase_moe_serve(params, cfg) -> tuple:
     """The slice's main path: ServeEngine.generate on the MoE LM at (a)'s
-    shape.  Returns the moe_gemm launches of the run, its flash_attn launches
-    in all and by route, and the dispatch buffer of the first MoE layer in a
-    served decode step."""
+    shape.  Returns the moe_gemm launches of the run in all and by route, its
+    flash_attn launches in all and by route, and the dispatch buffers (with
+    their rows) of the first MoE layer in a served prefill and in a served
+    decode step."""
     V, L = cfg.vocab_size, cfg.num_layers
     label, B, S, new = MOE_SERVE_RUN
     plan = lm_plan(cfg)
@@ -1195,10 +1257,14 @@ def phase_moe_serve(params, cfg) -> tuple:
     dt = time.perf_counter() - t0
     n_moe, n_flash = moe_ops.moe_gemm_fused.launches, flash_ops.flash_attention_fused.launches
     by_route = dict(flash_ops.flash_attention_fused.launches_by_route)
+    moe_routes = dict(moe_ops.moe_gemm_fused.launches_by_route)
     if n_flash != L or by_route != {"fma": 0, "mma": 0, "wgmma": L} or n_moe != 3 * L:
         fail(f"moe serve ({label}): flash_attn launches {n_flash} ({by_route}) != {L} on the wgmma route (the "
              f"prefill's), or moe_gemm launches {n_moe} != {3 * L} (the prefill's, the eager decode step's and the "
              "graph capture's)")
+    if moe_routes != {"fma": 0, "mma": 0, "wgmma": L, "decode": 2 * L}:
+        fail(f"moe serve ({label}): moe_gemm launches by route {moe_routes}, not {L} on the wgmma route (the "
+             f"prefill's) and {2 * L} on the decode route (the eager step's and the capture's)")
     if tuple(out.shape) != (B, new) or out.min().item() < 0 or out.max().item() >= V:
         fail(f"moe serve ({label}): bad output {tuple(out.shape)} in [{out.min().item()}, {out.max().item()}]")
     print(f"[moe-serve] ({label}) [{cfg.name} x{L} layers | {plan.cache_policy} {plan.window} | static] {B} x {S} "
@@ -1206,13 +1272,26 @@ def phase_moe_serve(params, cfg) -> tuple:
           f"({B * S / engine.prefill_s:.0f} prompt tok/s), decode {engine.decode_s * 1e3:.1f} ms for {new - 1} steps "
           f"({B * (new - 1) / engine.decode_s:.1f} tok/s, {engine.decode_s / (new - 1) * 1e3:.2f} ms/step, CUDA "
           f"graph); launches flash_attn {n_flash} = {L} layers x 1 prefill on the wgmma route, moe_gemm {n_moe} = {L} layers x (prefill "
-          f"+ eager step + capture); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+          f"+ eager step + capture), by route {moe_routes}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
           f"tokens[0][:8] {out[0, :8].tolist()}")
     # where a prefill's and a decode step's device time goes
     params_c = tfm.cast_params(engine.params, cfg)
     tokens = torch.from_numpy(rng.integers(3, V, size=(B, S))).cuda()
     _profile(lambda: engine._prefill(params_c, tokens), f"one MoE prefill of {B} x {S} tokens (bf16)")
-    logits, cache = engine._prefill(params_c, tokens)
+    served = []
+
+    def record(kernel, *args):  # the first call's dispatch buffer and rows (layer 0); comparison launches
+        if not served:
+            served.append((args[0].clone(), args[4].clone()))
+        return kernel(*args)
+
+    with _moe_wrapped(record):
+        logits, cache = engine._prefill(params_c, tokens)
+    prefill_buf = served.pop()
+    rows = prefill_buf[1]
+    print(f"[moe-serve] a served prefill's layer-0 dispatch buffer {list(prefill_buf[0].shape)}: {int(rows.sum())} of "
+          f"{B * S * cfg.moe.top_k} slots kept, rows per expert {int(rows.min())}-{int(rows.max())} of capacity "
+          f"{prefill_buf[0].shape[1]}, {int((rows == 0).sum())} experts empty")
     cache = pad_cache(cfg, cache, S + new)
     tok = logits.argmax(-1)
 
@@ -1222,19 +1301,20 @@ def phase_moe_serve(params, cfg) -> tuple:
             lg, cache = engine._step(params_c, tok, cache)
             tok = lg.argmax(-1)
 
-    served = []
-
-    def record(kernel, *args):  # the first decode step's dispatch buffers, one a layer
+    def record_step(kernel, *args):  # the first decode step's dispatch buffers and rows, one a layer
         if len(served) < L:
-            served.append(args[0].clone())
+            served.append((args[0].clone(), args[4].clone()))
         return kernel(*args)
 
-    with _moe_wrapped(record):
+    with _moe_wrapped(record_step):
         decode8()  # warm
-    occupied = [int((b != 0).any(-1).any(-1).sum().item()) for b in served]
-    print(f"[moe-serve] a served decode step's dispatch buffers {list(served[0].shape)}: experts with a row, layer by "
-          f"layer, {occupied} of {cfg.moe.num_experts} ({B} tokens x top-{cfg.moe.top_k} slots, colliding slots "
-          "dropped)")
+    occupied = [int((r > 0).sum().item()) for _, r in served]
+    held = [int((b != 0).any(-1).any(-1).sum().item()) for b, _ in served]
+    if occupied != held:
+        fail(f"a served decode step's rows name {occupied} experts with a row, its buffers hold rows in {held}")
+    print(f"[moe-serve] a served decode step's dispatch buffers {list(served[0][0].shape)}: experts with a row, layer "
+          f"by layer, {occupied} of {cfg.moe.num_experts} ({B} tokens x top-{cfg.moe.top_k} slots, colliding slots "
+          "dropped; the rows passed to moe_gemm agree)")
     _profile(decode8, f"8 eager MoE decode steps of {B} sequences at {S + 8}-{S + 16} cached tokens (bf16)")
     # one replay of the captured decode step: its kernels are the graph's
     moe_ops.moe_gemm_fused.launches = 0
@@ -1242,19 +1322,21 @@ def phase_moe_serve(params, cfg) -> tuple:
     if moe_ops.moe_gemm_fused.launches != 2 * L:
         fail(f"capture_decode: moe_gemm launches {moe_ops.moe_gemm_fused.launches} != {2 * L} (eager step + capture)")
     events = _profile(graph.replay, "one replay of the captured MoE decode step (bf16)", top=8)
-    per_kernel = {e.key: e.count for e in events if "moe_mma_kernel" in e.key}
-    if len(per_kernel) != 2 or any(c != L for c in per_kernel.values()):
-        fail(f"the decode graph's replay ran the moe_gemm kernels {per_kernel}, not both {L} times")
-    print(f"[moe-serve] the decode graph's replay ran each moe_gemm kernel {L} times: "
+    per_kernel = {e.key: e.count for e in events if "moe_dec_kernel" in e.key}
+    others = [e.key for e in events if "moe_" in e.key and "moe_dec_kernel" not in e.key]
+    if len(per_kernel) != 2 or any(c != L for c in per_kernel.values()) or others:
+        fail(f"the decode graph's replay ran the decode route's moe_gemm kernels {per_kernel}, not both {L} times, "
+             f"or other moe kernels {others}")
+    print(f"[moe-serve] the decode graph's replay ran each of the decode route's moe_gemm kernels {L} times: "
           f"{ {k[:60]: c for k, c in per_kernel.items()} }")
-    return n_moe, n_flash, by_route, served[0]
+    return n_moe, moe_routes, n_flash, by_route, prefill_buf, served[0]
 
 
 @contextlib.contextmanager
 def _moe_wrapped(wrapper):
     """Route the MoE blocks' moe_gemm calls through ``wrapper(kernel, x, w1,
-    wg, w2)`` for the duration (``models/moe.py`` looks the wrapper up by
-    name at each call).  Launches made meanwhile are comparison launches."""
+    wg, w2, rows)`` for the duration (``models/moe.py`` looks the wrapper up
+    by name at each call).  Launches made meanwhile are comparison launches."""
     kernel = moe_model.moe_gemm_fused
     moe_model.moe_gemm_fused = lambda *args: wrapper(kernel, *args)
     try:
@@ -1303,9 +1385,11 @@ def phase_moe_bf16_paths(params, cfg):
     tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(B, S))).cuda()
     calls, flash_calls = [], []
 
-    def checked(kernel, *args):
-        out = kernel(*args)
-        calls.append(_moe_bf16_check(out, args, f"({label}) layer {len(calls)}"))
+    def checked(kernel, x, w1, wg, w2, rows):
+        out = kernel(x, w1, wg, w2, rows)
+        if torch.count_nonzero(out[torch.arange(x.shape[1], device="cuda")[None, :] >= rows[:, None]]).item():
+            fail(f"({label}) layer {len(calls)}: moe_gemm rows past rows[e] are not zero")
+        calls.append(_moe_bf16_check(out, (x, w1, wg, w2), f"({label}) layer {len(calls)}", rows))
         return out
 
     def flash_checked(kernel, q, k, v, **kw):
@@ -1356,48 +1440,70 @@ def _moe_bmm(x, w1, wg, w2):
     return torch.bmm(torch.nn.functional.silu(torch.bmm(x, w1)) * torch.bmm(x, wg), w2)
 
 
-def phase_moe_timing(launches: int, max_err: float, decode_buf: torch.Tensor) -> dict:
-    """moe_gemm at the MoE serving run's prefill call and at a decode step's
-    call, bf16, model scales, L2 flushed: the kernel, its plain version and
-    the bmm yardstick.  The decode call runs twice: on a dense buffer (every
-    expert has a row) and on ``decode_buf``, a served step's buffer, where
-    most experts have none.  The bound counts the rows and the experts'
-    weights that the data needs (x and the output whole)."""
+def phase_moe_timing(launches: int, routes: dict, max_err: float, prefill_buf: tuple, decode_buf: tuple) -> dict:
+    """moe_gemm, bf16, model scales, L2 flushed, at the MoE serving run's
+    calls: the prefill's on a dense buffer (every row of C=641 holds a slot
+    but two) and on a served prefill's layer-0 buffer with its rows; a
+    decode step's on a dense buffer (every expert has a row) and on a served
+    step's buffer with its rows (most experts have none).  Each beside the
+    first tensor-core kernels (the "mma" route, every row computed, without
+    rows), the plain version and the bmm yardstick.  The bound counts the rows, and
+    the experts' weights, that the data needs: x's rows with a slot (x whole
+    without rows), the output whole."""
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
-    rows = {}
-    for label, s, runs in (("prefill", MOE_PREFILL_SHAPE, 10), ("decode, dense buffer", MOE_DECODE_SHAPE, 30),
-                           ("decode, served buffer", MOE_DECODE_SHAPE, 30)):
+    res = {}
+    for label, s, served, runs in (("prefill, dense buffer", MOE_PREFILL_SHAPE, None, 10),
+                                   ("prefill, served buffer", MOE_PREFILL_SHAPE, prefill_buf, 10),
+                                   ("decode, dense buffer", MOE_DECODE_SHAPE, None, 30),
+                                   ("decode, served buffer", MOE_DECODE_SHAPE, decode_buf, 30)):
         args = moe_inputs(s, torch.bfloat16, seed=11)
-        if label == "decode, served buffer":
-            args = (decode_buf,) + args[1:]
-        kernel_ms = _median_ms(lambda: moe_ops.moe_gemm_fused(*args), runs, flush, True)
-        plain_ms = _median_ms(lambda: moe_gemm_plain(*args), max(3, runs // 3), flush, True)
-        bmm_ms = _median_ms(lambda: _moe_bmm(*args), runs, flush, True)
-        got = moe_ops.moe_gemm_fused(*args)
-        max_err = max(max_err, _moe_bf16_check(got, args, f"{label} timing inputs")[0])
+        rows = None
+        if served is not None:
+            args, rows = (served[0],) + args[1:], served[1]
+        route = moe_ops.pick_route(torch.bfloat16, *args[0].shape, args[1].shape[2])
+        t = {"kernel": _median_ms(lambda: moe_ops.moe_gemm_fused(*args, rows), runs, flush, True),
+             "mma": _median_ms(lambda: moe_ops.moe_gemm_fused(*args, route="mma"), runs, flush, True),
+             "plain": _median_ms(lambda: moe_gemm_plain(*args, rows), max(3, runs // 3), flush, True),
+             "bmm": _median_ms(lambda: _moe_bmm(*args), runs, flush, True)}
+        got = moe_ops.moe_gemm_fused(*args, rows)
+        max_err = max(max_err, _moe_bf16_check(got, args, f"{label} timing inputs", rows)[0])
         bmm_err = (got.float() - _moe_bmm(*args).float()).abs().max().item()
+        mma_err = (got.float() - moe_ops.moe_gemm_fused(*args, route="mma").float()).abs().max().item()
         E, C, d, F = s["E"], s["C"], s["d"], s["F"]
-        kept = (args[0] != 0).any(-1)  # [E, C]: the rows that hold a slot
-        n_rows, n_experts = int(kept.sum().item()), int(kept.any(-1).sum().item())
-        nbytes = 2 * (2 * E * C * d + 3 * n_experts * d * F)  # x and out; the weights of experts with a row: bf16
+        if rows is None:
+            kept = (args[0] != 0).any(-1)  # [E, C]: the rows that hold a slot
+            n_rows, n_experts, x_rows = int(kept.sum().item()), int(kept.any(-1).sum().item()), E * C
+        else:
+            n_rows, n_experts = int(rows.sum().item()), int((rows > 0).sum().item())
+            x_rows = n_rows
+        nbytes = 2 * (x_rows * d + E * C * d + 3 * n_experts * d * F)  # x, out, the weights of experts with a row
         flops = 2 * n_rows * d * F * 3  # x.W1, x.Wg and h.W2 over the rows with a slot
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        rows[label] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        res[label] = (t, bound_ms, bound_by)
         print(f"[timing] moe_gemm at the MoE {label} call E={E} C={C} d={d} F={F} bf16, {n_rows} rows with a slot "
-              f"in {n_experts} experts, median, L2 flushed: device time kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.bmm x 3 + gate (yardstick) {bmm_ms:.4f} ms (kernel vs bmm max_abs_err "
-              f"{bmm_err:.3e}); bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.4f} "
-              f"ms, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e3:.4f} ms); kernel at {flops / kernel_ms / 1e9:.2f} "
-              f"TFLOP/s, {nbytes / kernel_ms / 1e6:.1f} GB/s of the needed bytes")
-    kernel_ms, plain_ms, bound_ms, bound_by = rows["prefill"]
-    print(f"[timing] moe_gemm: {launches} launches in the MoE serving run; library_ms: none (no single PyTorch call "
-          "computes the gated expert FFN; the bmm yardstick is printed above)")
+              f"in {n_experts} experts{' (rows passed)' if rows is not None else ''}, median, L2 flushed: device time "
+              f"kernel ({route} route) {t['kernel']:.4f} ms, the mma route's kernel (every row) {t['mma']:.4f} ms, "
+              f"plain {t['plain']:.4f} ms, torch.bmm x 3 + gate (yardstick) {t['bmm']:.4f} ms (kernel vs bmm "
+              f"max_abs_err {bmm_err:.3e}, vs the mma route {mma_err:.3e}); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes} B at 3.35 TB/s = {t_bytes * 1e3:.4f} ms, {flops} FLOP at 989 TFLOP/s = {t_ops * 1e3:.4f} "
+              f"ms); kernel at {flops / t['kernel'] / 1e9:.2f} TFLOP/s, {nbytes / t['kernel'] / 1e6:.1f} GB/s of the "
+              f"needed bytes, {t['kernel'] / bound_ms:.2f}x its bound")
+    print(f"[timing] moe_gemm: {launches} launches in the MoE serving run, by route {routes}; library_ms: none (no "
+          "single PyTorch call computes the gated expert FFN; the bmm yardstick is printed above)")
+    t, bound_ms, bound_by = res["prefill, dense buffer"]
+    ts, sbound, _ = res["prefill, served buffer"]
+    td, dbound, _ = res["decode, served buffer"]
+    tdd, ddbound, _ = res["decode, dense buffer"]
     return {
         "name": "moe_gemm", "route": "cuda", "source": MOE_SOURCE, "replaces": MOE_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches": launches, "launches_by_route": routes, "max_abs_err": max_err, "ms": t["kernel"],
+        "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "mma_route_ms": t["mma"], "bmm_ms": t["bmm"],
+        "served_prefill_ms": ts["kernel"], "served_prefill_bound_ms": sbound, "served_prefill_mma_route_ms": ts["mma"],
+        "decode_ms": td["kernel"], "decode_bound_ms": dbound, "decode_mma_route_ms": td["mma"],
+        "decode_dense_ms": tdd["kernel"], "decode_dense_bound_ms": ddbound,
     }
 
 
@@ -1455,14 +1561,15 @@ def main():
           f"{m.d_ff_expert}, capacity factor {m.capacity_factor}, V={moe_cfg.vocab_size}, window "
           f"{moe_cfg.sliding_window}: {n} parameters ({n * 4 / 1e9:.2f} GB fp32), initialized in "
           f"{time.perf_counter() - t0:.1f}s")
-    moe_launches, moe_flash_launches, moe_flash_routes, decode_buf = phase_moe_serve(moe_params, moe_cfg)
+    moe_launches, moe_routes, moe_flash_launches, moe_flash_routes, prefill_buf, decode_buf = phase_moe_serve(
+        moe_params, moe_cfg)
     phase_moe_model_paths(moe_params, moe_cfg)
     phase_moe_bf16_paths(moe_params, moe_cfg)
     del moe_params
     torch.cuda.empty_cache()
     records.append(phase_flash_timing(flash_launches + moe_flash_launches,
                                       {r: flash_routes[r] + moe_flash_routes[r] for r in flash_routes}, flash_err))
-    records.append(phase_moe_timing(moe_launches, moe_err, decode_buf))
+    records.append(phase_moe_timing(moe_launches, moe_routes, moe_err, prefill_buf, decode_buf))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())

@@ -2,6 +2,8 @@
 
 Each kernel subpackage holds:
   csrc/*.cu  the CUDA C++ source for sm_90a, with a plain C entry point
+             (headers shared between kernels live in ``csrc/`` beside this
+             file and are included by name, ``#include "hopper.cuh"``)
   ops.py     the wrapper: checks inputs, launches the kernel on CUDA tensors
              (or raises), runs the plain version on CPU tensors, counts launches
   ref.py     the plain PyTorch version the tests and ``chip_smoke.py`` hold
@@ -9,22 +11,28 @@ Each kernel subpackage holds:
 
 :func:`load_library` compiles a kernel's sources with ``nvcc`` into a shared
 library under ``_build/`` at first use and loads it with ``ctypes``.  The
-library's file name carries a hash of the sources and flags, so a rebuild
-happens only when they change.  :func:`build_all` starts one ``nvcc`` per
-library at once.  Nothing here runs when the module is imported.
+library's file name carries a hash of the flags, the sources and every
+header they include (``#include "..."``, followed recursively), so a
+rebuild happens when any of them changes and only then.  :func:`build_all`
+starts one ``nvcc`` per library at once.  Nothing here runs when the module
+is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCE_DIR = Path(__file__).resolve().parent  # LIBRARIES' paths are relative to it
+INCLUDE_DIR = SOURCE_DIR / "csrc"  # headers shared between kernels
+BUILD_DIR = SOURCE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 # library name -> sources, relative to this directory
 LIBRARIES = {
@@ -56,10 +64,33 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS and the search path of the shared headers."""
+    return (*NVCC_FLAGS, "-I", str(INCLUDE_DIR))
+
+
+def library_files(name: str) -> list:
+    """The sources of library ``name`` and every header they include with
+    ``#include "..."``, recursively (found beside the including file, then in
+    INCLUDE_DIR, as nvcc looks), each once, in the order first met."""
+    files, todo = [], [SOURCE_DIR / rel for rel in LIBRARIES[name]]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        for inc in _INCLUDE.findall(f.read_text()):
+            found = next((c for c in (f.parent / inc, INCLUDE_DIR / inc) if c.is_file()), None)
+            if found is None:
+                raise FileNotFoundError(f'{f} includes "{inc}", found neither beside it nor in {INCLUDE_DIR}')
+            todo.append(found.resolve())
+    return files
+
+
 def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for rel in LIBRARIES[name]:
-        h.update((Path(__file__).resolve().parent / rel).read_bytes())
+    for f in library_files(name):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -72,8 +103,8 @@ def _start_build(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
-    srcs = [str(Path(__file__).resolve().parent / rel) for rel in LIBRARIES[name]]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    srcs = [str(SOURCE_DIR / rel) for rel in LIBRARIES[name]]
+    cmd = [nvcc_path(), *nvcc_flags(), "-o", tmp, *srcs]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -78,17 +78,28 @@ def sorted_dispatch(ids: torch.Tensor, num_groups: int, capacity: int):
     group such that a group receives at most ``capacity`` slots, in stable
     order.  Returns (dest [N] int64 in [0, capacity], keep [N] bool); dest ==
     capacity marks a dropped slot."""
+    dest, keep, _ = _dispatch(ids, num_groups, capacity)
+    return dest, keep
+
+
+def _dispatch(ids: torch.Tensor, num_groups: int, capacity: int):
+    """:func:`sorted_dispatch`, and rows (int32 [num_groups]): how many kept
+    slots each group holds, min(n_g, capacity), which sit at its positions
+    0 .. rows[g] - 1.  All on ids' device, with no read back to the host, so
+    a decode step that runs it stays capturable in a CUDA graph."""
     n = ids.shape[0]
     order = torch.argsort(ids, stable=True)
     sorted_ids = ids[order]
-    starts = torch.searchsorted(sorted_ids, torch.arange(num_groups, dtype=ids.dtype, device=ids.device))
+    edges = torch.searchsorted(sorted_ids, torch.arange(num_groups + 1, dtype=ids.dtype, device=ids.device))
+    starts = edges[:-1]
     pos_sorted = torch.arange(n, device=ids.device) - starts[sorted_ids]
     keep_sorted = pos_sorted < capacity
     dest_sorted = torch.where(keep_sorted, pos_sorted, capacity)
     # back to the slots' own order (order is a permutation: every slot is written)
     dest = torch.empty_like(dest_sorted).scatter_(0, order, dest_sorted)
     keep = torch.empty_like(keep_sorted).scatter_(0, order, keep_sorted)
-    return dest, keep
+    rows = torch.clamp(edges[1:] - starts, max=capacity).to(torch.int32)
+    return dest, keep, rows
 
 
 def gather_to_groups(x_slots: torch.Tensor, ids: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
@@ -139,9 +150,10 @@ def _capacity(num_slots: int, num_groups: int, factor: float) -> int:
 def apply_moe(p: dict, x: torch.Tensor, m: MoEConfig, act_name: str = "silu",
               kernel: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """x [T, d] -> (y [T, d], aux_loss).  ``kernel="cuda"`` runs the gated
-    expert FFN on ``kernels/moe_gemm`` (the plain version and the fp32
-    kernel keep h in fp32, as the Pallas kernel does; the bf16 tensor-core
-    kernel rounds it to bf16 between the products); ``"torch"`` on
+    expert FFN on ``kernels/moe_gemm``, telling it how many rows of each
+    expert's group hold a slot (the plain version and the fp32 kernel keep h
+    in fp32, as the Pallas kernel does; the bf16 tensor-core kernels round
+    it to bf16 between the products); ``"torch"`` on
     :func:`expert_ffn`, which rounds each product to the compute dtype."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
@@ -154,12 +166,12 @@ def apply_moe(p: dict, x: torch.Tensor, m: MoEConfig, act_name: str = "silu",
     k = m.top_k
     ids = top_idx.reshape(-1)  # [T*k]; slot i -> token i // k
     C = _capacity(T * k, m.num_experts, m.capacity_factor)
-    dest, keep = sorted_dispatch(ids, m.num_experts, C)
+    dest, keep, rows = _dispatch(ids, m.num_experts, C)
     x_slots = x[:, None].expand(T, k, d).reshape(T * k, d)
     buf = gather_to_groups(x_slots, ids, dest, keep, m.num_experts, C)
     if kernel == "cuda":
         dt = buf.dtype
-        y_buf = moe_gemm_fused(buf, p["w1"].to(dt), p["wg"].to(dt), p["w2"].to(dt))
+        y_buf = moe_gemm_fused(buf, p["w1"].to(dt), p["wg"].to(dt), p["w2"].to(dt), rows)
     else:
         y_buf = expert_ffn(p, buf, act_name)
     y_slots = scatter_from_groups(y_buf, ids, dest, keep)  # [T*k, d]

@@ -308,8 +308,8 @@ def test_graphed_decode_matches_eager(cuda):
         assert graphed.tolist() == eager.tolist(), (S, steps)
 
 
-# kernel_harness.py's moe_gemm shapes (blocks dropped; the last runs the FMA
-# kernel in bf16, as F=36 is not a multiple of 8), a shape whose every tile is
+# kernel_harness.py's moe_gemm shapes (blocks dropped; the last takes only the
+# FMA kernel in bf16, as F=36 is not a multiple of 8), a shape whose every tile is
 # ragged on the tensor-core path, one with several K tiles around the copy
 # ring, and the serving decode step's per-expert call (C=1) on 8 experts
 MOE_SHAPES = [
@@ -338,30 +338,84 @@ def _moe_inputs(s, dtype, seed=0):
     return tuple(t.to(dtype) for t in (x, w1, wg, w2))
 
 
+# shapes for the "wgmma" and "decode" routes (d and F multiples of 64): a
+# row tile with one live half, column tiles past F and d (F=192, d=320),
+# several tiles of the prefill's C, C of 2-16 for the decode route
+MOE_WIDE_SHAPES = [
+    dict(E=2, C=130, d=128, F=128), dict(E=3, C=200, d=320, F=192), dict(E=5, C=641, d=256, F=384),
+    dict(E=6, C=16, d=256, F=192), dict(E=5, C=7, d=128, F=64), dict(E=3, C=2, d=64, F=128),
+    dict(E=8, C=1, d=2048, F=768),
+]
+
+
+def _moe_rows(s, kind, seed=0):
+    """rows int32 [E] on the card: None, or "mixed" (0, C and values between)."""
+    if kind is None:
+        return None
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, s["C"] + 1, size=s["E"])
+    r[:2] = [0, s["C"]][: s["E"]]
+    r[-1] = s["C"]  # at least one expert holds rows
+    return torch.from_numpy(r.astype(np.int32)).cuda()
+
+
+def _moe_check(args, rows, route, dname):
+    """One call on ``route`` against the plain version: TOL_TIGHT against its
+    output in the inputs' dtype and, in bf16, MOE_BF16_TOL and
+    MOE_BF16_REL_L2 against its fp32 output; rows past rows[e] (which hold
+    NaN and 1e4) exactly zero; empty slots exactly zero; the launch counted
+    on the route."""
+    E, C = args[0].shape[:2]
+    if rows is not None:
+        dead = torch.arange(C, device="cuda")[None, :] >= rows[:, None]
+        args[0][dead] = 1e4
+        args[0][:, ::2][dead[:, ::2]] = float("nan")
+    before = dict(moe_ops.moe_gemm_fused.launches_by_route)
+    got = moe_ops.moe_gemm_fused(*args, rows, route=route)
+    torch.cuda.synchronize()
+    assert moe_ops.moe_gemm_fused.launches_by_route[route] == before[route] + 1
+    assert got.dtype == args[0].dtype and got.shape == args[0].shape
+    if rows is not None:
+        assert torch.count_nonzero(got[dead]) == 0 and not torch.isnan(got).any(), route
+    if C > 3:
+        assert torch.count_nonzero(got[:, 2:4]) == 0, route
+    want = moe_gemm_plain(*args, rows)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL_TIGHT[dname],
+                               err_msg=f"{route} {tuple(args[0].shape)} {dname}")
+    if dname == "bfloat16":
+        want32 = moe_gemm_plain(*(t.float() for t in args), rows)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want32.cpu().numpy(), **MOE_BF16_TOL,
+                                   err_msg=f"{route} {tuple(args[0].shape)} bf16 vs the plain version's fp32 output")
+        rel = ((got.float() - want32).norm() / want32.norm()).item()
+        assert rel <= MOE_BF16_REL_L2, (route, tuple(args[0].shape), rel)
+
+
+@pytest.mark.parametrize("rows_kind", [None, "mixed"])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
-def test_moe_gemm_kernel_matches_plain(cuda, dname):
-    """fp32 runs the FMA kernels (TOL_TIGHT); bf16 the tensor-core kernels
-    where d and F are multiples of 8, held against the plain version's bf16
-    output (TOL_TIGHT) and its fp32 output (MOE_BF16_TOL, relative L2).
-    Empty slots come back exactly zero."""
-    for s in MOE_SHAPES:
-        args = _moe_inputs(s, TORCH_DT[dname])
-        before = moe_ops.moe_gemm_fused.launches
-        got = moe_ops.moe_gemm_fused(*args)
-        torch.cuda.synchronize()
-        assert moe_ops.moe_gemm_fused.launches == before + 1
-        assert got.dtype == args[0].dtype and got.shape == args[0].shape
-        if s["C"] > 3:
-            assert torch.count_nonzero(got[:, 2:4]) == 0, s
-        want = moe_gemm_plain(*args)
-        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **TOL_TIGHT[dname],
-                                   err_msg=f"{s} {dname}")
-        if dname == "bfloat16":
-            want32 = moe_gemm_plain(*(t.float() for t in args))
-            np.testing.assert_allclose(got.float().cpu().numpy(), want32.cpu().numpy(), **MOE_BF16_TOL,
-                                       err_msg=f"{s} bf16 vs the plain version's fp32 output")
-            rel = ((got.float() - want32).norm() / want32.norm()).item()
-            assert rel <= MOE_BF16_REL_L2, (s, rel)
+def test_moe_gemm_kernel_matches_plain(cuda, dname, rows_kind):
+    """fp32 runs the FMA kernels (TOL_TIGHT); bf16 every route that takes the
+    shape: the mma.sync kernels where d and F are multiples of 8, the FMA
+    kernels at any width, and at the wide shapes the wgmma and (C <= 16) the
+    decode kernels, held against the plain version's bf16 output (TOL_TIGHT)
+    and its fp32 output (MOE_BF16_TOL, relative L2).  With rows, the rows
+    past rows[e] come back exactly zero whatever x holds there."""
+    dtype = TORCH_DT[dname]
+    for s in MOE_SHAPES + MOE_WIDE_SHAPES:
+        E, C, d, F = s["E"], s["C"], s["d"], s["F"]
+        for route in moe_ops.ROUTES:
+            if moe_ops.route_fits(route, dtype, E, C, d, F):
+                _moe_check(list(_moe_inputs(s, dtype)), _moe_rows(s, rows_kind), route, dname)
+
+
+def test_moe_gemm_picks_the_new_routes(cuda):
+    """bf16 at the MoE LM's widths: the decode kernels at C <= 16, the wgmma
+    kernels above; each call launches once, on its route."""
+    for s, want in ((dict(E=8, C=1, d=2048, F=768), "decode"), (dict(E=8, C=16, d=256, F=192), "decode"),
+                    (dict(E=4, C=17, d=256, F=192), "wgmma"), (dict(E=4, C=300, d=2048, F=768), "wgmma")):
+        args = _moe_inputs(s, torch.bfloat16)
+        moe_ops.reset_launches()
+        moe_ops.moe_gemm_fused(*args)
+        assert moe_ops.moe_gemm_fused.launches == 1 and moe_ops.moe_gemm_fused.launches_by_route[want] == 1, s
 
 
 def test_graphed_moe_decode_matches_eager(cuda):

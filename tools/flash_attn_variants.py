@@ -93,7 +93,7 @@ def build(variants):
         defs += [f"-DFLASH_WG_DIAG={e.split('=')[1]}" for e in extra if e.startswith("DIAG=")]
         lib = out_dir / f"libflash_attn-variant{i}.so"
         src = edited_source(out_dir, i, DIAG_EDITS) if any(e.startswith("DIAG=") for e in extra) else SOURCE
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", *defs, "-o", str(lib), str(src)]
+        cmd = [kernels.nvcc_path(), *kernels.nvcc_flags(), "-Xptxas", "-v", *defs, "-o", str(lib), str(src)]
         procs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     built = {}
     for v, (p, lib) in procs.items():

@@ -96,7 +96,7 @@ def build(variants, diag):
     procs = {}
     for i, v in enumerate(variants):
         lib = out_dir / f"liblstm_cell-variant{i}.so"
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
+        cmd = [kernels.nvcc_path(), *kernels.nvcc_flags(), "-Xptxas", "-v", "-o", str(lib),
                str(variant_source(v, diag, out_dir, i))]
         procs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     built = {}
