@@ -10,9 +10,16 @@ Phases, each printed as it runs; any failure exits nonzero:
    TF32 switched off for matmuls and cuDNN;
 2. build: every CUDA kernel of the port, from the sources in the checkout,
    one ``nvcc`` per kernel, all started together;
-3. kernel vs plain, forward: the ``luong_attn`` kernel at the decode shape,
-   the training step's shape (2048 rows), a ragged shape, the
-   ``tests/kernel_harness.py`` shapes and an all-masked row; the ``lstm_cell`` kernels at the harness's shapes, a shape
+3. kernel vs plain, forward: the ``luong_attn`` kernels, on every route
+   that takes each shape ("decode": bf16 up to 32 rows; "wgmma": bf16, h a
+   multiple of 64; "fma": all), at the decode ticks (8 and 4 slots, 32
+   rows), the training step's shape (2048 rows), ragged rows (N=48, R=129),
+   one and 129 source positions, the ``tests/kernel_harness.py`` shapes and
+   an all-masked row, fp32 and bf16 at TOL_ATTN; bf16 on the new routes
+   also against the plain version's fp32 output, within twice that
+   output's own bf16 rounding error (relative L2 and max abs), two calls
+   bit-identical, and a control with each row's last unmasked source
+   position dropped must miss that bound; the ``lstm_cell`` kernels at the harness's shapes, a shape
    of three ragged row tiles and the model's two full-width shapes, fp32 and
    bf16, the old mixed feed (fp32 weights: the FMA kernel), the model's feed
    (x and weights bf16, h and c fp32: the tensor-core kernel, held to
@@ -23,18 +30,23 @@ Phases, each printed as it runs; any failure exits nonzero:
    full-width training shapes (and the Luong forward output beside them);
 5. serving: the full-width ``seq2seq-rnn`` (4 layers, h=1024, V=32000, bf16,
    random weights from seed 0) through ``ContinuousEngine``: 8 requests on
-   4 slots, so slots recycle; ``luong_attn`` launches once per decode tick;
+   4 slots, so slots recycle; ``luong_attn`` launches once per decode tick,
+   every one on the "decode" route;
 6. kernel path vs plain path in the serving model, fp32: one ``decode_step``
    and a 16-step ``greedy_decode``;
 7. training: the full-width model through ``Trainer`` (bf16 compute over fp32
    masters, dropout 0.3, Adam, clip 5.0) on ``MTBatchIterator`` batches of 64,
    8 steps; ``lstm_cell`` launches layers x (M + N), every one on the
-   tensor-core kernel, and ``luong_attn`` once per step; then one step under
+   tensor-core kernel, and ``luong_attn`` once per step on the "wgmma"
+   route; then one step under
    ``torch.profiler``;
 8. kernel path vs plain path in one fp32 training step: loss and every grad
    leaf;
-9. timing with CUDA events: ``luong_attn`` at the decode shape (and at the
-   training shape), ``lstm_cell`` at the training shape on the model's feed
+9. timing with CUDA events: ``luong_attn`` at the decode tick on the
+   "decode" route and at the training shape on the "wgmma" route, each
+   beside the first kernel (the "fma" route), the plain version and the "torch" stage
+   path's bf16 eq. 1-4 (cuBLAS GEMMs: the yardstick), with the scratch each
+   allocates; ``lstm_cell`` at the training shape on the model's feed
    (L2 flushed and warm; and at In=512), beside the fp32-masters feed's FMA
    kernel, the plain version and ``torch.lstm_cell`` in bf16;
 10. ``flash_attn`` kernel vs plain, on every route that takes the inputs:
@@ -117,7 +129,8 @@ Phases, each printed as it runs; any failure exits nonzero:
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
 launches of the serving runs and the training run, each counted from 0
-around its run; ``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
+around its run; ``luong_attn`` one record per route on the main path,
+``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
 power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
 Without CUDA, or without the repository beside it, it exits nonzero and
@@ -171,20 +184,39 @@ HARNESS_SHAPES = [
     dict(B=3, N=10, M=7, h=48),
     dict(B=2, N=1, M=1, h=16),
 ]
-# (label, shape, all-masked row, model scales).  The two h=1024 shapes take
+# (label, shape, all-masked row, model scales).  The h=1024 shapes take
 # the model's own input scales: at the harness's, the scores at h=1024 have a
 # standard deviation near 100, the softmax is all but one-hot, and two fp32
 # evaluations of the same head (different summation orders) can differ by
-# more than TOL_ATTN's fp32 bound.
+# more than TOL_ATTN's fp32 bound.  Each case runs on every route that takes
+# it: the decode ticks (R <= 32 rows) on "decode", the rest of h a multiple
+# of 64 on "wgmma", every case on "fma"; ragged rows (R = 129, N = 48), one
+# source position and 129 of them, and an all-masked row on each route.
 TIMING_SHAPE = dict(B=4, N=1, M=64, h=1024)  # the serving phase's decode tick: 4 slots, max_len 64
 LUONG_TRAIN_SHAPE = dict(B=64, N=32, M=32, h=1024)  # the training step's head: 2048 rows
 PARITY_CASES = (
     [("decode", dict(B=8, N=1, M=64, h=1024), None, True),
+     ("decode-tick", TIMING_SHAPE, None, True),
      ("train", LUONG_TRAIN_SHAPE, None, True),
-     ("train-ragged", dict(B=4, N=48, M=40, h=1024), None, True)]
+     ("train-ragged", dict(B=4, N=48, M=40, h=1024), None, True),
+     ("rows-129", dict(B=3, N=43, M=20, h=1024), None, True),
+     ("M-1-decode", dict(B=4, N=1, M=1, h=1024), None, True),
+     ("M-1", dict(B=2, N=40, M=1, h=1024), None, True),
+     ("M-129-decode", dict(B=8, N=1, M=129, h=1024), None, True),
+     ("M-129", dict(B=2, N=24, M=129, h=1024), None, True),
+     ("rows-32-decode", dict(B=32, N=1, M=64, h=1024), None, True)]
     + [(f"harness-{i}", s, None, False) for i, s in enumerate(HARNESS_SHAPES)]
-    + [("all-masked-row", dict(B=3, N=2, M=5, h=16), 1, False)]
+    + [("all-masked-row", dict(B=3, N=2, M=5, h=16), 1, False),
+       ("all-masked-row-h64", dict(B=3, N=2, M=5, h=64), 1, False),
+       ("all-masked-row-train-ragged", dict(B=4, N=48, M=40, h=1024), 2, True)]
 )
+# W_a at an eighth of its fan-in scale in the model-scale inputs: the scores' standard deviation is
+# then about 1.6 (a head that attends, neither flat nor one-hot).  At the full fan-in scale it is about
+# 13 at h=1024, the softmax all but one-hot, and dropping a source position moves the output less than
+# its bf16 rounding: no check could see a position go missing.
+LUONG_WA_SCALE = 1 / 8
+LUONG_NEW_ROUTES = ("decode", "wgmma")  # bf16 on these is also held to LUONG_BOUND_FACTOR x the rounding
+LUONG_BOUND_FACTOR = 2.0  # of the plain version's own bf16-rounded output's error (relative L2 and max abs)
 # tests/kernel_harness.py's lstm_cell shapes, copied (block sizes dropped)
 LSTM_HARNESS_SHAPES = [
     dict(B=8, In=16, H=32), dict(B=4, In=64, H=64), dict(B=16, In=24, H=128),
@@ -280,14 +312,15 @@ def nvidia_smi_line() -> str:
 def luong_inputs(s: dict, dtype: torch.dtype, seed: int = 0, masked_row=None, model_scales: bool = False):
     """Inputs on the card: the harness's (states N(0,1), weights 0.1 N(0,1)),
     or with ``model_scales`` the model's own (states tanh-bounded like LSTM
-    outputs, weights at the initializer's fan-in scales).  Mask: 20% masked,
-    column 0 real, ``masked_row`` all masked."""
+    outputs, W_c at the initializer's fan-in scale, W_a at LUONG_WA_SCALE of
+    it).  Mask: 20% masked, column 0 real, ``masked_row`` all masked."""
     rng = np.random.default_rng(seed)
     B, N, M, h = s["B"], s["N"], s["M"], s["h"]
     f = lambda shape, scale=1.0: torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()
     H, S = f((B, N, h)), f((B, M, h))
     if model_scales:
-        H, S, wa, wc = torch.tanh(H), torch.tanh(S), f((h, h), h**-0.5), f((2 * h, h), (2 * h) ** -0.5)
+        H, S = torch.tanh(H), torch.tanh(S)
+        wa, wc = f((h, h), LUONG_WA_SCALE * h**-0.5), f((2 * h, h), (2 * h) ** -0.5)
     else:
         wa, wc = f((h, h), 0.1), f((2 * h, h), 0.1)
     mask = rng.random((B, M)) > 0.2
@@ -319,26 +352,101 @@ def phase_build():
     print(f"[build] {', '.join(kernels.LIBRARIES)} built and loaded in {time.perf_counter() - t0:.2f}s")
 
 
+def luong_want_fp32(H, S, mask, wa, wc):
+    """The plain version's fp32 output on the same (bf16) inputs."""
+    h = H.shape[-1]
+    return luong_attention_ref(H.float(), S.float(), mask, wa.float(), wc[:h].float(), wc[h:].float())
+
+
+def luong_bound(want) -> tuple:
+    """(relative L2, max abs) that a bf16 output may miss ``want`` by:
+    LUONG_BOUND_FACTOR x the error of ``want`` itself rounded to bf16."""
+    own = want.to(torch.bfloat16).float()
+    return LUONG_BOUND_FACTOR * _rel_l2(own, want), LUONG_BOUND_FACTOR * (own - want).abs().max().item()
+
+
+def luong_errors(got, want) -> tuple:
+    """(relative L2, max abs) of a bf16 output against ``want``."""
+    return _rel_l2(got, want), (got.float() - want).abs().max().item()
+
+
+def drop_last_position(mask):
+    """The control's mask: each row's last unmasked source position masked too."""
+    m = mask.clone().bool()
+    last = torch.where(m, torch.arange(m.shape[1], device=m.device), -1).max(dim=1).values
+    rows = torch.nonzero(last >= 0).squeeze(1)
+    m[rows, last[rows]] = False
+    return m
+
+
+def luong_routes(s: dict, dtype: torch.dtype) -> list:
+    """Every route that takes the inputs, the wrapper's pick first."""
+    pick = luong_ops.pick_route(dtype, s["h"], s["B"] * s["N"])
+    return [pick] + [r for r in luong_ops.ROUTES
+                     if r != pick and luong_ops.route_fits(r, dtype, s["h"], s["B"] * s["N"])]
+
+
+def luong_bf16_check(label: str, route: str, args: tuple, control: bool) -> tuple:
+    """A new route's bf16 output against the plain version's fp32 output on the
+    same inputs, within luong_bound; two calls bit-identical; with ``control``
+    the same call with each row's last unmasked position dropped must miss the
+    bound.  Returns (relative L2, max abs, bounds)."""
+    H, S, mask, wa, wc = args
+    want = luong_want_fp32(*args)
+    got = luong_ops.luong_attention_fused(*args, route=route)
+    again = luong_ops.luong_attention_fused(*args, route=route)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"luong_attn {label} {route}: two calls differ")
+    rel, err = luong_errors(got, want)
+    b_rel, b_err = luong_bound(want)
+    if rel > b_rel or err > b_err:
+        fail(f"luong_attn {label} {route} bf16 vs the plain version's fp32 output: relative L2 {rel:.3e} (bound "
+             f"{b_rel:.3e}), max_abs_err {err:.3e} (bound {b_err:.3e})")
+    note = ""
+    if control:
+        cut = luong_ops.luong_attention_fused(H, S, drop_last_position(mask), wa, wc, route=route)
+        c_rel, c_err = luong_errors(cut, want)
+        if c_rel <= b_rel and c_err <= b_err:
+            fail(f"luong_attn {label} {route}: the control (last unmasked position dropped) is within the bound: "
+                 f"relative L2 {c_rel:.3e}, max_abs_err {c_err:.3e}")
+        note = f"; control with the last position dropped misses it: relative L2 {c_rel:.3e}, max abs {c_err:.3e}"
+    print(f"[parity] luong_attn {label} {route} bf16 vs plain fp32 output: relative L2 {rel:.3e} (bound {b_rel:.3e}), "
+          f"max_abs_err {err:.3e} (bound {b_err:.3e}); two calls bit-identical{note}")
+    return rel, err, b_rel, b_err
+
+
 def phase_parity() -> float:
+    """Every luong route against the plain version at the shapes it takes:
+    at TOL_ATTN in the inputs' dtype, and (bf16 on the new routes) within
+    luong_bound of the plain version's fp32 output.  Each call must count
+    on its route."""
     worst = 0.0
     for label, s, masked, model_scales in PARITY_CASES:
         for dname, dtype in DTYPES.items():
-            H, S, mask, wa, wc = luong_inputs(s, dtype, masked_row=masked, model_scales=model_scales)
+            args = luong_inputs(s, dtype, masked_row=masked, model_scales=model_scales)
+            H, S, mask, wa, wc = args
             h = s["h"]
-            got = luong_ops.luong_attention_fused(H, S, mask, wa, wc)
-            torch.cuda.synchronize()
             want = luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:])
-            if got.dtype != dtype or got.shape != H.shape:
-                fail(f"luong_attn {label} {dname}: got {got.dtype} {tuple(got.shape)}")
-            if not torch.isfinite(got.float()).all():
-                fail(f"luong_attn {label} {dname}: non-finite output")
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), **TOL_ATTN[dname])
-            print(f"[parity] luong_attn {label} {s} {dname}: max_abs_err {err:.3e} "
-                  f"(atol/rtol {TOL_ATTN[dname]['atol']}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"luong_attn kernel disagrees with its plain version at {label} {dname}")
-            worst = max(worst, err)
+            for route in luong_routes(s, dtype):
+                before = luong_ops.luong_attention_fused.launches_by_route[route]
+                got = luong_ops.luong_attention_fused(*args, route=route)
+                torch.cuda.synchronize()
+                if luong_ops.luong_attention_fused.launches_by_route[route] != before + 1:
+                    fail(f"luong_attn {label} {dname}: the call did not count on the {route} route")
+                if got.dtype != dtype or got.shape != H.shape:
+                    fail(f"luong_attn {label} {dname} {route}: got {got.dtype} {tuple(got.shape)}")
+                if not torch.isfinite(got.float()).all():
+                    fail(f"luong_attn {label} {dname} {route}: non-finite output")
+                err = (got.float() - want.float()).abs().max().item()
+                ok = torch.allclose(got.float(), want.float(), **TOL_ATTN[dname])
+                print(f"[parity] luong_attn {label} {s} {dname} {route}: max_abs_err {err:.3e} "
+                      f"(atol/rtol {TOL_ATTN[dname]['atol']}) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"luong_attn {route} kernel disagrees with its plain version at {label} {dname}")
+                worst = max(worst, err)
+                if dtype == torch.bfloat16 and route in LUONG_NEW_ROUTES:
+                    luong_bf16_check(label, route, args, control=s["M"] > 1)
     return worst
 
 
@@ -500,12 +608,13 @@ def phase_serve(params, cfg):
     prompts = [rng.integers(3, V, size=int(L)) for L in lens]
     engine.run(prompts[:2], 2)  # warm-up: first cuBLAS calls, allocator
     torch.cuda.synchronize()
-    luong_ops.luong_attention_fused.launches = lstm_ops.lstm_cell_fused.launches = 0
+    luong_ops.reset_launches()
+    lstm_ops.lstm_cell_fused.launches = 0
     t0 = time.perf_counter()
     outs = engine.run(prompts, 24)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = luong_ops.luong_attention_fused.launches
+    launches, by_route = luong_ops.luong_attention_fused.launches, dict(luong_ops.luong_attention_fused.launches_by_route)
     tok = 0
     for i, o in enumerate(outs):
         if not isinstance(o, np.ndarray) or not 1 <= len(o) <= 24:
@@ -515,13 +624,15 @@ def phase_serve(params, cfg):
         tok += len(o)
     if engine.decode_ticks <= 0 or launches != engine.decode_ticks:
         fail(f"luong_attn launches {launches} != decode ticks {engine.decode_ticks}")
+    if by_route["decode"] != launches:
+        fail(f"luong_attn launches by route {by_route}: every decode tick must run the decode route")
     if engine.finite_checks != engine.decode_ticks:
         fail("the live-slot finiteness check did not run on every tick")
     print(f"[serve] [{cfg.name} | {plan.cache_policy} | {plan.admission}] {len(outs)} requests, "
           f"{tok} tokens in {dt:.2f}s ({tok / dt:.1f} tok/s)")
     print(f"[serve] source lengths {lens.tolist()}, output lengths {[len(o) for o in outs]}, "
           f"{engine.prefill_steps} prefill steps, {engine.decode_ticks} decode ticks, "
-          f"luong_attn launches {launches}, live slots finite on every tick (poison canary on)")
+          f"luong_attn launches {launches} (by route {by_route}), live slots finite on every tick (poison canary on)")
     return launches, engine.decode_ticks
 
 
@@ -567,24 +678,26 @@ def phase_train(cfg):
     lstm_launches = luong_launches = 0
     cell = lstm_ops.lstm_cell_fused
     for step in range(1, TRAIN_STEPS + 1):
-        cell.launches = cell.mma_launches = cell.fma_launches = luong_ops.luong_attention_fused.launches = 0
+        cell.launches = cell.mma_launches = cell.fma_launches = 0
+        luong_ops.reset_launches()
         trainer.run(1, log_every=1, log=lambda line: None)
         n_lstm, n_luong = cell.launches, luong_ops.luong_attention_fused.launches
+        n_luong_wgmma = luong_ops.luong_attention_fused.launches_by_route["wgmma"]
         h = trainer.history[-1]
         if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
             fail(f"training step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
         batch = next(twin)
         M, N = batch["src"].shape[1], batch["tgt_in"].shape[1]
         want = cfg.num_layers * (M + N)
-        if n_lstm != want or n_luong != 1:
+        if n_lstm != want or n_luong != 1 or n_luong_wgmma != 1:
             fail(f"training step {step}: lstm_cell launches {n_lstm} != layers x (M + N) = {want}, "
-                 f"or luong_attn launches {n_luong} != 1")
+                 f"or luong_attn launches {n_luong} (wgmma route {n_luong_wgmma}) != 1")
         if cell.mma_launches != n_lstm:
             fail(f"training step {step}: {cell.fma_launches} of {n_lstm} lstm_cell launches took the FMA "
                  "kernel, not the tensor-core one")
         print(f"[train] step {step}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} "
               f"{h['tokens']:.0f} target tokens M={M} N={N} in {h['step_s'] * 1e3:.1f} ms; "
-              f"launches lstm_cell {n_lstm} (tensor-core {cell.mma_launches}) luong_attn {n_luong}")
+              f"launches lstm_cell {n_lstm} (tensor-core {cell.mma_launches}) luong_attn {n_luong} (wgmma route)")
         lstm_launches += n_lstm
         luong_launches += n_luong
     steady = trainer.history[2:]
@@ -652,51 +765,77 @@ def _median_ms(fn, runs: int, flush, hide_host: bool) -> float:
     return float(np.median(times))
 
 
-def phase_timing(launches: int, ticks: int, max_err: float) -> dict:
-    s = TIMING_SHAPE
+def luong_torch_path(H, S, mask, wa, wc):
+    """models/seq2seq.py's "torch" stage path of eq. 1-4 in the inputs' dtype
+    (cuBLAS GEMMs): the yardstick, used nowhere on the kernel path."""
+    scores = torch.matmul(torch.matmul(H, wa), S.transpose(1, 2))
+    scores = torch.where(mask[:, None, :] != 0, scores.float(), torch.full((), -1e30, device=H.device))
+    alpha = torch.softmax(scores, dim=-1).to(H.dtype)
+    return torch.tanh(torch.matmul(torch.cat([H, alpha @ S], dim=-1), wc))
+
+
+def luong_bound_ms(s: dict) -> tuple:
+    """(bound ms, bound_by, bytes, flops) of one head call: H, S, the mask and
+    the three weights read once and Hc written once, in bf16; the flops of
+    eq. 1-4."""
     B, N, M, h = s["B"], s["N"], s["M"], s["h"]
-    H, S, mask, wa, wc = luong_inputs(s, torch.bfloat16, seed=2, model_scales=True)
-    mask = mask.to(torch.int32)  # the kernel's input
-    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
-    runs = 60
-    kernel = lambda: luong_ops.luong_attention_fused(H, S, mask, wa, wc)
-    plain = lambda: luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:])
-    kernel_ms, plain_ms = _median_ms(kernel, runs, flush, True), _median_ms(plain, runs, flush, True)
-    kernel_call_ms, plain_call_ms = _median_ms(kernel, runs, flush, False), _median_ms(plain, runs, flush, False)
-    got = luong_ops.luong_attention_fused(H, S, mask, wa, wc)
-    want = luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:])
-    max_err = max(max_err, (got.float() - want.float()).abs().max().item())
-    # least work: each input read once, the output written once; the flops of eq. 1-4
-    nbytes = 2 * (B * N * h + B * M * h + 3 * h * h + B * N * h) + 4 * B * M
+    nbytes = 2 * (2 * B * N * h + B * M * h + 3 * h * h) + 4 * B * M
     flops = 2 * B * N * h * h * 3 + 2 * 2 * B * N * M * h
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations"
-    print(f"[timing] luong_attn at K={B} M={M} h={h} bf16, median of {runs} runs, L2 flushed: "
-          f"device time kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; with the host's enqueue "
-          f"kernel {kernel_call_ms:.4f} ms, plain {plain_call_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us "
-          f"({nbytes} B at 3.35 TB/s; {bound_by}), {launches} launches in the serving and training runs "
-          f"({ticks} decode ticks + {TRAIN_STEPS} training steps); "
-          "library_ms: none (no single PyTorch call computes eq. 1-4)")
-    # the same head at the training step's shape (2048 rows), device time only
-    t = LUONG_TRAIN_SHAPE
-    Ht, St, maskt, wat, wct = luong_inputs(t, torch.bfloat16, seed=4, model_scales=True)
-    maskt = maskt.to(torch.int32)
-    rows = t["B"] * t["N"]
-    train_k = _median_ms(lambda: luong_ops.luong_attention_fused(Ht, St, maskt, wat, wct), 20, flush, True)
-    train_p = _median_ms(lambda: luong_attention_ref(Ht, St, maskt, wat, wct[:h], wct[h:]), 20, flush, True)
-    tbytes = 2 * (2 * rows * h + t["B"] * t["M"] * h + 3 * h * h) + 4 * t["B"] * t["M"]
-    tflops = 2 * rows * h * h * 3 + 2 * 2 * rows * t["M"] * h
-    tbound = max(tbytes / HBM_BYTES_PER_S, tflops / BF16_FLOP_PER_S) * 1e3
-    scratch_mb = luong_ops._library().luong_attn_scratch_floats(t["B"], t["N"], t["M"], h) * 4 / 1e6
-    print(f"[timing] luong_attn at the training shape {t} bf16, median of 20 runs, L2 flushed: device time "
-          f"kernel {train_k:.4f} ms, plain {train_p:.4f} ms; bound {tbound * 1e3:.2f} us "
-          f"({'bytes' if tbytes / HBM_BYTES_PER_S >= tflops / BF16_FLOP_PER_S else 'operations'}); "
-          f"fp32 split-K scratch {scratch_mb:.1f} MB per call")
-    return {
-        "name": "luong_attn", "route": "cuda", "source": LUONG_SOURCE, "replaces": LUONG_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def phase_timing(serve_launches: int, train_launches: int, ticks: int, max_err: float) -> list:
+    """luong_attn, bf16, model scales, L2 flushed (the decode tick streams 100+
+    MB of other weights between two head calls, and the training step far
+    more), at the serving tick's call on the "decode" route and the training
+    step's on the "wgmma" route; beside each, the first kernel (the "fma" route), the plain
+    version and the "torch" stage path (the yardstick).  One record per
+    route: its launches are those of the main path's run that takes it."""
+    flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    records = []
+    for route, s, runs, launches in (("decode", TIMING_SHAPE, 60, serve_launches),
+                                     ("wgmma", LUONG_TRAIN_SHAPE, 20, train_launches)):
+        B, N, M, h = s["B"], s["N"], s["M"], s["h"]
+        args = luong_inputs(s, torch.bfloat16, seed=2 if route == "decode" else 4, model_scales=True)
+        H, S, mask, wa, wc = args
+        args = (H, S, mask.to(torch.int32), wa, wc)  # the kernels' mask
+        if luong_ops.pick_route(torch.bfloat16, h, B * N) != route:
+            fail(f"luong_attn at {s}: the wrapper picks {luong_ops.pick_route(torch.bfloat16, h, B * N)}, not {route}")
+        fns = {"kernel": lambda: luong_ops.luong_attention_fused(*args),
+               "fma": lambda: luong_ops.luong_attention_fused(*args, route="fma"),
+               "plain": lambda: luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:]),
+               "torch": lambda: luong_torch_path(*args)}
+        t = {k: _median_ms(fn, runs, flush, True) for k, fn in fns.items()}
+        enqueue = {k: _median_ms(fns[k], runs, flush, False) for k in ("kernel", "fma")}
+        want = luong_want_fp32(*args)
+        got = luong_ops.luong_attention_fused(*args)
+        max_err = max(max_err, (got.float() - luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:]).float()).abs().max().item())
+        rel, err = luong_errors(got, want)
+        b_rel, b_err = luong_bound(want)
+        f_rel, f_err = luong_errors(fns["fma"](), want)
+        y_rel, y_err = luong_errors(fns["torch"](), want)
+        bound_ms, bound_by, nbytes, flops = luong_bound_ms(s)
+        scratch = {r: luong_ops.scratch_bytes(B, N, M, h, r) / 1e6 for r in (route, "fma")}
+        print(f"[timing] luong_attn at {s} bf16 on the {route} route, median of {runs} runs, L2 flushed: device time "
+              f"kernel {t['kernel']:.4f} ms, the fma route's kernel {t['fma']:.4f} ms, plain {t['plain']:.4f} ms, the "
+              f"torch stage path (yardstick, cuBLAS) {t['torch']:.4f} ms; with the host's enqueue kernel "
+              f"{enqueue['kernel']:.4f} ms, fma {enqueue['fma']:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B "
+              f"at 3.35 TB/s, {flops} FLOP at 989 TFLOP/s), kernel {t['kernel'] / bound_ms:.2f}x its bound; scratch "
+              f"per call {scratch[route]:.1f} MB ({route}), {scratch['fma']:.1f} MB (fma); against the plain version's "
+              f"fp32 output: kernel relative L2 {rel:.3e} max abs {err:.3e} (bound {b_rel:.3e} / {b_err:.3e}), fma "
+              f"{f_rel:.3e} / {f_err:.3e}, torch path {y_rel:.3e} / {y_err:.3e}")
+        records.append({
+            "name": f"luong_attn:{route}", "route": "cuda", "source": LUONG_SOURCE, "replaces": LUONG_REPLACES,
+            "launches": launches, "max_abs_err": max_err, "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "fma_route_ms": t["fma"], "torch_path_ms": t["torch"], "scratch_mb": scratch[route],
+            "shape": s,
+        })
+    print(f"[timing] luong_attn: {serve_launches} decode-route launches in the serving run ({ticks} decode ticks), "
+          f"{train_launches} wgmma-route launches in the training run ({TRAIN_STEPS} steps); library_ms: none (no "
+          "single PyTorch call computes eq. 1-4; the torch stage path above is the yardstick)")
+    return records
 
 
 def _lstm_bound(args, outs) -> tuple:
@@ -1229,8 +1368,8 @@ def moe_config():
 
 
 def _reset_launches():
-    for fn in (luong_ops.luong_attention_fused, lstm_ops.lstm_cell_fused):
-        fn.launches = 0
+    lstm_ops.lstm_cell_fused.launches = 0
+    luong_ops.reset_launches()
     flash_ops.reset_launches()
     moe_ops.reset_launches()
 
@@ -1528,8 +1667,8 @@ def main():
     tcfg = train_config()
     lstm_launches, train_luong_launches = phase_train(tcfg)
     phase_step_paths(tcfg)
-    records = [phase_timing(serve_launches + train_luong_launches, ticks, max_err),
-               phase_lstm_timing(lstm_launches, lstm_err)]
+    records = phase_timing(serve_launches, train_luong_launches, ticks, max_err)
+    records.append(phase_lstm_timing(lstm_launches, lstm_err))
     flash_err = phase_flash_parity()
     lm_cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="bfloat16")
     t0 = time.perf_counter()

@@ -183,6 +183,80 @@ def test_luong_kernel_matches_plain(cuda):
                                        err_msg=f"{s} {dname}")
 
 
+# (B, N, M, h, all-masked row) for the luong routes that take them: decode ticks (R <= 32), ragged
+# rows, one and 129 source positions, the training step's 2048 rows
+LUONG_ROUTE_CASES = [
+    (4, 1, 64, 1024, None), (8, 1, 129, 1024, None), (32, 1, 64, 1024, None), (4, 1, 1, 1024, None),
+    (3, 2, 5, 64, 1), (2, 16, 12, 64, None), (3, 43, 20, 1024, None), (4, 48, 40, 1024, 2), (2, 40, 1, 1024, None),
+    (64, 32, 32, 1024, None),
+]
+
+
+def _luong_inputs(B, N, M, h, masked, seed=0):
+    """bf16 inputs on the card at chip_smoke.py's model scales (tanh states, W_c at
+    its fan-in scale, W_a at an eighth of it); int32 mask, 20% masked."""
+    rng = np.random.default_rng(seed)
+    f = lambda shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=shape) * scale).astype(np.float32)).cuda()
+    H, S = torch.tanh(f((B, N, h))), torch.tanh(f((B, M, h)))
+    wa, wc = f((h, h), h**-0.5 / 8), f((2 * h, h), (2 * h) ** -0.5)
+    mask = rng.random((B, M)) > 0.2
+    mask[:, 0] = True
+    if masked is not None:
+        mask[masked] = False
+    return [t.to(torch.bfloat16) for t in (H, S)] + [torch.from_numpy(mask).cuda()] + [
+        t.to(torch.bfloat16) for t in (wa, wc)]
+
+
+def _luong_bf16_errors(got, want):
+    d = got.float() - want
+    return (d.norm() / want.norm()).item(), d.abs().max().item()
+
+
+@pytest.mark.parametrize("route", ["decode", "wgmma"])
+def test_luong_route_within_rounding_bound(cuda, route):
+    """Each new route on bf16 inputs against the plain version's fp32 output:
+    within twice the error of that output's own bf16 rounding (relative L2
+    and max abs), bit-identical over two calls, counted on its route; a
+    control with each row's last unmasked position dropped misses the bound."""
+    for B, N, M, h, masked in LUONG_ROUTE_CASES:
+        if not ops.route_fits(route, torch.bfloat16, h, B * N):
+            continue
+        H, S, mask, wa, wc = _luong_inputs(B, N, M, h, masked)
+        want = luong_attention_ref(H.float(), S.float(), mask, wa.float(), wc[:h].float(), wc[h:].float())
+        own_rel, own_err = _luong_bf16_errors(want.to(torch.bfloat16), want)
+        before = ops.luong_attention_fused.launches_by_route[route]
+        got = ops.luong_attention_fused(H, S, mask, wa, wc, route=route)
+        again = ops.luong_attention_fused(H, S, mask, wa, wc, route=route)
+        torch.cuda.synchronize()
+        assert ops.luong_attention_fused.launches_by_route[route] == before + 2
+        assert torch.equal(got, again)
+        rel, err = _luong_bf16_errors(got, want)
+        assert rel <= 2 * own_rel and err <= 2 * own_err, (B, N, M, h, rel, own_rel, err, own_err)
+        if M > 1:
+            cut = mask.clone()
+            last = torch.where(cut, torch.arange(M, device="cuda"), -1).max(dim=1).values
+            rows = torch.nonzero(last >= 0).squeeze(1)
+            cut[rows, last[rows]] = False
+            c_rel, c_err = _luong_bf16_errors(ops.luong_attention_fused(H, S, cut, wa, wc, route=route), want)
+            assert c_rel > 2 * own_rel or c_err > 2 * own_err, (B, N, M, h, "control within the bound")
+
+
+def test_luong_pick_route_on_card(cuda):
+    """The wrapper's pick runs: the decode tick on "decode", the training
+    step's rows on "wgmma", fp32 on "fma"; each call counts once."""
+    for (B, N, M, h), dt, route in (((4, 1, 64, 1024), torch.bfloat16, "decode"),
+                                    ((64, 32, 32, 1024), torch.bfloat16, "wgmma"),
+                                    ((4, 1, 64, 1024), torch.float32, "fma")):
+        H, S, mask, wa, wc = (t.to(dt) if t.is_floating_point() else t for t in _luong_inputs(B, N, M, h, None))
+        before = dict(ops.luong_attention_fused.launches_by_route), ops.luong_attention_fused.launches
+        ops.luong_attention_fused(H, S, mask, wa, wc)
+        torch.cuda.synchronize()
+        after = ops.luong_attention_fused.launches_by_route
+        assert ops.luong_attention_fused.launches == before[1] + 1
+        assert {r: after[r] - before[0][r] for r in after} == {r: int(r == route) for r in after}
+
+
 # kernel_harness.py's flash_attn shapes (blocks dropped), ragged S != T
 # shapes, the serving prefill's full-width per-layer call (qwen3-1.7b:
 # B=4, S=2048, 16 q heads on 8 kv heads, D=128, window 4096), then shapes at

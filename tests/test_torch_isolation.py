@@ -94,10 +94,36 @@ def test_luong_wrapper_cpu_path_is_plain_version():
     H, S = torch.randn(B, N, h), torch.randn(B, M, h)
     mask = torch.from_numpy(rng.random((B, M)) > 0.3)
     wa, wc = torch.randn(h, h), torch.randn(2 * h, h)
-    before = ops.luong_attention_fused.launches
+    before = ops.luong_attention_fused.launches, dict(ops.luong_attention_fused.launches_by_route)
     got = ops.luong_attention_fused(H, S, mask, wa, wc)
-    assert ops.luong_attention_fused.launches == before
+    assert (ops.luong_attention_fused.launches, ops.luong_attention_fused.launches_by_route) == before
     assert torch.equal(got, luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:]))
+
+
+def test_luong_wrapper_sends_cuda_tensors_to_a_kernel(monkeypatch):
+    """A CUDA tensor goes to the kernels' launch with the route asked for and
+    never to the plain version; any device but CPU and CUDA raises."""
+    g = torch.Generator().manual_seed(0)
+    B, N, M, h = 2, 3, 5, 64
+    S, wa, wc = torch.randn(B, M, h, generator=g), torch.randn(h, h, generator=g), torch.randn(2 * h, h, generator=g)
+    mask = torch.ones(B, M, dtype=torch.bool)
+
+    class OnTheCard:  # all the Function's forward reads before it dispatches
+        device = torch.device("cuda", 0)
+
+    class Ctx:
+        def save_for_backward(self, *tensors):
+            self.saved = tensors
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ops, "_plain", refuse)
+    monkeypatch.setattr(ops, "_launch", lambda *args: ("launched", args[-1]))
+    for route in (None, "decode", "wgmma", "fma"):
+        assert ops._LuongHead.forward(Ctx(), OnTheCard(), S, mask, wa, wc, route) == ("launched", route)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        ops.luong_attention_fused(torch.randn(B, N, h).to("meta"), S, mask, wa, wc)
 
 
 def _jax_tree():

@@ -159,3 +159,140 @@ def test_luong_fused_grads_flow_only_where_asked():
     (gH,) = torch.autograd.grad(out.sum(), [H])
     assert gH.shape == H.shape and torch.isfinite(gH).all()
     assert x["S"].grad is None and not x["mask"].requires_grad
+
+
+# ---------------------------------------------------------------------------
+# The kernel routes: which inputs each takes, and the "wgmma" route's
+# roundings written out in plain PyTorch (the CUDA kernels themselves are
+# held against the plain version on the card by tests/test_torch_cuda.py).
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (dtype, h, R = B*N, the pick): the boundaries of each route
+ROUTE_PICKS = [
+    (BF16, 1024, 1, "decode"), (BF16, 1024, 4, "decode"), (BF16, 1024, ops.DECODE_MAX_ROWS, "decode"),
+    (BF16, 1024, ops.DECODE_MAX_ROWS + 1, "wgmma"), (BF16, 1024, 2048, "wgmma"), (BF16, 64, 4, "decode"),
+    (BF16, 64, 33, "wgmma"), (BF16, 128, 64, "wgmma"), (BF16, 1088, 4, "wgmma"), (BF16, 2048, 2048, "wgmma"),
+    (BF16, 2112, 4, "fma"), (BF16, 2112, 2048, "fma"), (BF16, 48, 4, "fma"), (BF16, 1000, 2048, "fma"),
+    (BF16, 16, 2, "fma"), (F32, 1024, 4, "fma"), (F32, 1024, 2048, "fma"), (F32, 64, 32, "fma"),
+    (torch.float16, 1024, 4, "fma"),
+]
+# (route, dtype, h, R, fits)
+ROUTE_FITS = [
+    ("decode", BF16, 1024, ops.DECODE_MAX_ROWS, True), ("decode", BF16, 1024, ops.DECODE_MAX_ROWS + 1, False),
+    ("decode", BF16, ops.DECODE_MAX_H, 1, True), ("decode", BF16, ops.DECODE_MAX_H + 64, 1, False),
+    ("decode", BF16, 96, 4, False), ("decode", F32, 1024, 4, False), ("wgmma", BF16, ops.WGMMA_MAX_H, 1, True),
+    ("wgmma", BF16, ops.WGMMA_MAX_H + 64, 2048, False), ("wgmma", BF16, 64, 1, True), ("wgmma", BF16, 32, 2048, False),
+    ("wgmma", F32, 1024, 2048, False), ("fma", F32, 16, 1, True), ("fma", BF16, 1024, 2048, True),
+    ("fma", BF16, 48, 30, True),
+]
+
+
+@pytest.mark.parametrize("dtype,h,R,want", ROUTE_PICKS, ids=lambda v: str(v).replace("torch.", ""))
+def test_pick_route(dtype, h, R, want):
+    assert ops.pick_route(dtype, h, R) == want
+    assert ops.route_fits(want, dtype, h, R)
+
+
+@pytest.mark.parametrize("route,dtype,h,R,fits", ROUTE_FITS, ids=lambda v: str(v).replace("torch.", ""))
+def test_route_fits(route, dtype, h, R, fits):
+    assert ops.route_fits(route, dtype, h, R) is fits
+
+
+@pytest.mark.parametrize("route", ["decode", "wgmma", "bogus"])
+def test_named_route_that_does_not_fit_raises_on_cpu(route):
+    """fp32 inputs fit only "fma": naming another route raises, as on the card."""
+    t = _torch(_inputs(dict(B=2, N=1, M=3, h=64)), "float32")
+    with pytest.raises(ValueError, match="route"):
+        ops.luong_attention_fused(t["H"], t["S"], t["mask"], t["wa"], t["wc"], route=route)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_cpu_path_counts_no_route_launch(dt):
+    """The plain version runs on CPU tensors, with a fitting route named or not, and no count moves."""
+    t = _torch(_inputs(dict(B=2, N=3, M=5, h=64)), dt)
+    before = (ops.luong_attention_fused.launches, dict(ops.luong_attention_fused.launches_by_route))
+    routes = [None, "fma"] + (["decode", "wgmma"] if dt == "bfloat16" else [])
+    outs = [ops.luong_attention_fused(t["H"], t["S"], t["mask"], t["wa"], t["wc"], route=r) for r in routes]
+    assert (ops.luong_attention_fused.launches, ops.luong_attention_fused.launches_by_route) == before
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def _model_scale_inputs(s, seed=0):
+    """fp32 numpy inputs at chip_smoke.py's model scales: tanh-bounded states,
+    W_c at its fan-in scale and W_a at an eighth of it, so the scores'
+    standard deviation is about 1.6.  At h=1024 the harness's scales (and
+    W_a's full fan-in scale) make the softmax all but one-hot, and no source
+    position but the largest one moves the output."""
+    rng = np.random.default_rng(seed)
+    B, N, M, h = s["B"], s["N"], s["M"], s["h"]
+    f32 = lambda shape, scale=1.0: (rng.normal(size=shape) * scale).astype(np.float32)  # noqa: E731
+    x = dict(H=np.tanh(f32((B, N, h))), S=np.tanh(f32((B, M, h))), wa=f32((h, h), h**-0.5 / 8),
+             wc=f32((2 * h, h), (2 * h) ** -0.5))
+    mask = rng.random((B, M)) > 0.2
+    mask[:, 0] = True
+    x["mask"] = mask
+    return x
+
+
+def _wgmma_route_emulation(H, S, mask, wa, wc):
+    """The "wgmma" route's arithmetic on bf16 inputs, in plain PyTorch: Q = H W_a
+    kept in fp32 (exact bf16 products, fp32 sums), fp32 scores, softmax and
+    C = alpha S, C as two bf16 terms C_hi + C_lo, then tanh of the fp32 sum of
+    [H | C_hi | C_lo] [W_ch; W_cc; W_cc], rounded to bf16 once."""
+    h = H.shape[-1]
+    Hf, Sf, waf, wcf = (t.float() for t in (H, S, wa, wc))
+    scores = (Hf @ waf) @ Sf.transpose(1, 2)
+    scores = torch.where(mask[:, None, :] != 0, scores, torch.full((), -1e30))
+    C = torch.softmax(scores, dim=-1) @ Sf
+    c_hi = C.to(BF16).float()
+    c_lo = (C - c_hi).to(BF16).float()
+    return torch.tanh(Hf @ wcf[:h] + c_hi @ wcf[h:] + c_lo @ wcf[h:]).to(BF16)
+
+
+def _drop_last_position(mask):
+    """Each row's last unmasked source position masked too (the control)."""
+    m = mask.copy()
+    for row in m:
+        real = np.flatnonzero(row)
+        if real.size:
+            row[real[-1]] = False
+    return m
+
+
+def _errors(got, want):
+    """(relative L2, max abs) of ``got`` against the fp32 ``want``."""
+    d = got.astype(np.float32) - want
+    return float(np.linalg.norm(d) / np.linalg.norm(want)), float(np.abs(d).max())
+
+
+# (shape, model scales, control): the control at every shape but M=1, where dropping the one position
+# leaves the same (uniform) softmax
+EMULATION_CASES = [(s, ms, c) for s, ms in [(s, False) for s in LUONG_SHAPES] + [(dict(B=2, N=3, M=20, h=1024), True)]
+                   for c in (False, True) if not (c and s["M"] == 1)]
+
+
+@pytest.mark.parametrize("shape,model_scales,control", EMULATION_CASES,
+                         ids=lambda v: _sid(v) if isinstance(v, dict) else {True: "control", False: ""}.get(v, ""))
+def test_wgmma_route_roundings_within_bound_of_jax(shape, model_scales, control):
+    """The "wgmma" route's roundings against JAX's ``luong_attention_ref`` on
+    the same bf16 inputs, computed in fp32 (H handed over as fp32, which makes
+    the output fp32): within twice the error of JAX's own output rounded to
+    bf16, by relative L2 and by max abs, as chip_smoke.py holds the kernel on
+    the card.  The control, each row's last unmasked position dropped, must
+    miss that bound."""
+    x = _model_scale_inputs(shape) if model_scales else _inputs(shape)
+    t = _torch(x, "bfloat16")
+    j = _jax(x, "bfloat16")
+    h = shape["h"]
+    want = np.asarray(jax_ref(j["H"].astype(jnp.float32), j["S"], j["mask"], j["wa"], j["wc"][:h], j["wc"][h:]))
+    assert want.dtype == np.float32
+    own = np.asarray(jnp.asarray(want).astype(jnp.bfloat16).astype(jnp.float32))
+    own_rel, own_err = _errors(own, want)
+    mask = torch.from_numpy(_drop_last_position(x["mask"]) if control else x["mask"])
+    got = _wgmma_route_emulation(t["H"], t["S"], mask, t["wa"], t["wc"])
+    rel, err = _errors(got.float().numpy(), want)
+    within = rel <= 2 * own_rel and err <= 2 * own_err
+    assert within is not control, (f"relative L2 {rel:.3e} (bound {2 * own_rel:.3e}), max abs {err:.3e} "
+                                   f"(bound {2 * own_err:.3e})")
