@@ -42,6 +42,22 @@ Phases, each printed as it runs; any failure exits nonzero:
    ``torch.profiler``;
 8. kernel path vs plain path in one fp32 training step: loss and every grad
    leaf;
+8b. hybrid: the paper's hybrid data-model parallel step at full width
+   (``core/pipeline.py``'s wavefront, the phase boundary, the data-parallel
+   head).  (a) The trivial 1 x 1 grid over NCCL (world 1), HYBRID, pipelined,
+   2 microbatches interleaved through one wavefront: an fp32 step at dropout
+   0.3 on each of gpipe, 1f1b and zerobubble against the meshless step on the
+   same batch of 64 and generator seed (loss within STEP_LOSS_TOL, every grad
+   leaf at STEP_TOL); then 4 bf16 steps through ``Trainer`` on each
+   schedule, median step time beside the card's name and power limit, with
+   ``lstm_cell`` launching the meshless micro_batches=2 step's k x layers x
+   (M + N) plus the backward's recompute of as many again, every one on the
+   tensor-core kernel, and ``luong_attn`` once (the meshless step: once per
+   microbatch), on the "wgmma" route.  (b) A 1 x 2 grid of two processes on
+   this card over gloo (NCCL refuses two ranks on one card; the hand-offs go
+   through host memory): one fp32 step on gpipe and 1f1b, its grads
+   gathered from the two stages, against (a)'s meshless step; a rank that
+   fails or outlives its time limit fails the script;
 9. timing with CUDA events: ``luong_attn`` at the decode tick on the
    "decode" route and at the training shape on the "wgmma" route, each
    beside the first kernel (the "fma" route), the plain version and the "torch" stage
@@ -128,8 +144,9 @@ Phases, each printed as it runs; any failure exits nonzero:
     nowhere in the port, ``torch.bmm`` x 3 plus the gate.
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
-launches of the serving runs and the training run, each counted from 0
-around its run; ``luong_attn`` one record per route on the main path,
+launches of the serving runs, the training run and the hybrid phase's bf16
+steps, each counted from 0 around its run, the last also as
+``hybrid_launches``; ``luong_attn`` one record per route on the main path,
 ``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
 power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
@@ -144,6 +161,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -729,15 +747,181 @@ def phase_step_paths(cfg):
     dloss = abs(float(lk) - float(lp))
     if dloss > STEP_LOSS_TOL:
         fail(f"fp32 step loss: kernel path {float(lk)} vs plain path {float(lp)}")
-    err = 0.0
-    for i, (a, b) in enumerate(zip(tree_leaves(gk), tree_leaves(gp))):
-        err = max(err, (a - b).abs().max().item())
-        if not torch.allclose(a, b, **STEP_TOL):
-            fail(f"fp32 step grad leaf {i} {tuple(a.shape)}: kernel path vs plain max_abs_err "
-                 f"{(a - b).abs().max().item():.3e}")
+    err, bad = _grad_errors(gk, gp)
+    if bad is not None:
+        fail(f"fp32 step grad leaf {bad}: kernel path vs plain outside atol {STEP_TOL['atol']} rtol "
+             f"{STEP_TOL['rtol']} (max abs err over the leaves {err:.3e})")
     print(f"[train] fp32 step, kernel path vs plain path: loss {float(lk):.6f} vs {float(lp):.6f} "
           f"(|diff| {dloss:.2e} <= {STEP_LOSS_TOL}); {len(tree_leaves(gk))} grad leaves max_abs_err {err:.3e} "
           f"(atol {STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
+
+
+HYBRID_SCHEDULES = ("gpipe", "1f1b", "zerobubble")
+HYBRID_MICRO = 2  # microbatches interleaved through the wavefront
+HYBRID_BF16_STEPS = 4  # per schedule; the median is over steps 2-4
+HYBRID_SEED = 7  # the dropout generator's seed, on every rank and in the meshless reference
+HYBRID_RANK_LIMIT_S = 600  # phase (b): both ranks, build and checks included
+
+
+def _hybrid_batch(cfg, device):
+    return batch_to_device(next(MTBatchIterator(SyntheticMTTask(vocab_size=cfg.vocab_size), 64, seed=2)), device)
+
+
+def _hybrid_generator(device):
+    g = torch.Generator(device=device)
+    g.manual_seed(HYBRID_SEED)
+    return g
+
+
+def _grad_errors(grads, want) -> tuple:
+    """(max abs error, index of the first leaf outside STEP_TOL or None)."""
+    err, bad = 0.0, None
+    for i, (a, b) in enumerate(zip(tree_leaves(grads), tree_leaves(want))):
+        err = max(err, (a - b).abs().max().item())
+        if bad is None and not torch.allclose(a, b, **STEP_TOL):
+            bad = i
+    return err, bad
+
+
+def hybrid_rank(grid, cfg, ref_path: str, schedules: tuple) -> dict:
+    """Phase (b) on one rank of a 1 x 2 grid on the one card (gloo, the
+    hand-offs through host memory): the fp32 HYBRID pipelined step of
+    ``cfg``; rank 0 holds the grads, each leaf from its owner, against the
+    meshless step's saved by the parent.  Returns each rank's launches and,
+    from rank 0, the errors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = s2s.init_seq2seq(0, cfg, device=grid.device)
+    batch = _hybrid_batch(cfg, grid.device)
+    ref = torch.load(ref_path, weights_only=False) if grid.rank == 0 else None
+    out = {}
+    for sched in schedules:
+        plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=HYBRID_MICRO,
+                             schedule=sched, stage_kernel="cuda")
+        lstm_ops.lstm_cell_fused.launches = 0
+        luong_ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = make_grad_fn(cfg, plan)(params, batch, _hybrid_generator(grid.device))
+        float(loss)  # waits for the step
+        step_s = time.perf_counter() - t0
+        res = {"lstm": lstm_ops.lstm_cell_fused.launches, "luong": luong_ops.luong_attention_fused.launches,
+               "step_s": step_s}
+        whole = plan.gather_params(grads)
+        if grid.rank == 0:
+            err, bad = _grad_errors(whole, [g.to(grid.device) for g in ref["grads"]])
+            res.update(loss=float(loss), loss_err=abs(float(loss) - ref["loss"]), max_abs_err=err, bad_leaf=bad)
+        out[sched] = res
+    return out
+
+
+def phase_hybrid(tcfg, device="cuda") -> tuple:
+    """The slice's main path: the paper's hybrid data-model parallel step at
+    full width.  (a) the trivial 1 x 1 grid over NCCL: HYBRID, pipelined,
+    2 microbatches; fp32 at dropout 0.3 on each schedule against the meshless
+    step (same batch, same generator seed), then bf16 steps through Trainer
+    with the kernels' launches counted; (b) a 1 x 2 grid of two processes on
+    this card over gloo, fp32, against (a)'s meshless step.  Returns the
+    lstm_cell and luong_attn launches of (a)'s bf16 steps."""
+    from repro_torch.launch.mesh import make_grid, spawn_grid
+
+    cfg32 = dataclasses.replace(tcfg, dtype="float32")
+    params = s2s.init_seq2seq(0, cfg32, device=device)
+    batch = _hybrid_batch(cfg32, device)
+    M, N, L = batch["src"].shape[1], batch["tgt_in"].shape[1], cfg32.num_layers
+    loss, _, ref = make_grad_fn(cfg32, ExecutionPlan(stage_kernel="cuda"))(params, batch, _hybrid_generator(device))
+    cell = lstm_ops.lstm_cell_fused
+    with make_grid(1, 1, device=device) as grid:
+        for sched in HYBRID_SCHEDULES:
+            plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=HYBRID_MICRO,
+                                 schedule=sched, stage_kernel="cuda")
+            ploss, _, grads = make_grad_fn(cfg32, plan)(params, batch, _hybrid_generator(device))
+            dloss = abs(float(ploss) - float(loss))
+            err, bad = _grad_errors(grads, ref)
+            if dloss > STEP_LOSS_TOL or bad is not None:
+                fail(f"hybrid (a) {sched}: loss {float(ploss)} vs meshless {float(loss)}, grad leaf {bad} outside "
+                     f"atol {STEP_TOL['atol']} rtol {STEP_TOL['rtol']} (max abs err {err:.3e})")
+            print(f"[hybrid] (a) 1x1 grid, {grid.backend}, {sched}, micro_batches {HYBRID_MICRO}, fp32, dropout {cfg32.dropout}, "
+                  f"batch 64 M={M} N={N}: loss {float(ploss):.6f} vs meshless {float(loss):.6f} (|diff| {dloss:.2e} <= "
+                  f"{STEP_LOSS_TOL}); {len(tree_leaves(grads))} grad leaves max_abs_err {err:.3e} (atol "
+                  f"{STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
+        del grads
+
+        # launches: the meshless step with the same micro_batches, then the pipelined bf16 steps
+        it = lambda: MTBatchIterator(SyntheticMTTask(vocab_size=tcfg.vocab_size), batch_size=64, seed=3)  # noqa: E731
+        cell.launches = cell.mma_launches = 0
+        luong_ops.reset_launches()
+        meshless = Trainer(tcfg, adam(lr=1e-3), it(), plan=ExecutionPlan(stage_kernel="cuda", compute_dtype="bfloat16",
+                                                                           micro_batches=HYBRID_MICRO), seed=0,
+                           device=device)
+        meshless.run(1, log_every=1, log=lambda line: None)
+        first = next(it())
+        M1, N1 = first["src"].shape[1], first["tgt_in"].shape[1]
+        accum_lstm, accum_luong = cell.launches, luong_ops.luong_attention_fused.launches
+        if accum_lstm != HYBRID_MICRO * L * (M1 + N1) or accum_luong != HYBRID_MICRO:
+            fail(f"meshless micro_batches={HYBRID_MICRO} step: lstm_cell {accum_lstm} launches, luong_attn {accum_luong}")
+        lstm_total = luong_total = 0
+        for sched in HYBRID_SCHEDULES:
+            plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=HYBRID_MICRO,
+                                 schedule=sched, stage_kernel="cuda", compute_dtype="bfloat16")
+            trainer = Trainer(tcfg, adam(lr=1e-3), it(), plan=plan, seed=0)
+            twin = it()
+            for step in range(1, HYBRID_BF16_STEPS + 1):
+                cell.launches = cell.mma_launches = 0
+                luong_ops.reset_launches()
+                trainer.run(1, log_every=1, log=lambda line: None)
+                b = next(twin)
+                recompute = HYBRID_MICRO * L * (b["src"].shape[1] + b["tgt_in"].shape[1])
+                h = trainer.history[-1]
+                n_luong = luong_ops.luong_attention_fused.launches
+                if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+                    fail(f"hybrid bf16 {sched} step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
+                if cell.launches != 2 * recompute or cell.mma_launches != cell.launches or n_luong != 1 \
+                        or luong_ops.luong_attention_fused.launches_by_route["wgmma"] != 1:
+                    fail(f"hybrid bf16 {sched} step {step}: lstm_cell {cell.launches} launches ({cell.mma_launches} "
+                         f"tensor-core), want forward + recompute = 2 x {recompute}; luong_attn {n_luong}, want 1 "
+                         "on the wgmma route")
+                step_lstm = cell.launches
+                lstm_total += step_lstm
+                luong_total += n_luong
+            if sched == HYBRID_SCHEDULES[0]:  # one more step, not counted: where its time goes
+                _profile(lambda: trainer.run(1, log_every=1, log=lambda line: None),
+                         f"one hybrid pipelined step ({sched}, 1 x 1 grid, bf16)", top=10)
+                trainer.history.pop()
+            ms = [x["step_s"] * 1e3 for x in trainer.history[1:]]
+            print(f"[hybrid] (a) bf16 over fp32 masters, {sched}, dropout {tcfg.dropout}, batch 64: median step "
+                  f"{float(np.median(ms)):.1f} ms over steps 2-{HYBRID_BF16_STEPS} ({nvidia_smi_line()}); losses "
+                  f"{[round(x['loss'], 4) for x in trainer.history]}; per step lstm_cell {step_lstm} launches, all "
+                  f"tensor-core = the meshless micro_batches={HYBRID_MICRO} step's {accum_lstm} (k x layers x (M + N) "
+                  f"at M={M1} N={N1}) + the backward's recompute of every group, k x layers x (M + N) = {recompute} "
+                  f"at this step's M, N; luong_attn 1 (wgmma route) vs the meshless step's {accum_luong}: the head "
+                  "runs once on the whole batch")
+    # (b): two ranks on this card over gloo, against (a)'s meshless step
+    with tempfile.TemporaryDirectory(prefix="hybrid-") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"loss": float(loss), "grads": [g.cpu() for g in tree_leaves(ref)]}, ref_path)
+        del ref, params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_grid(hybrid_rank, 1, 2, args=(cfg32, ref_path, ("gpipe", "1f1b")), device=str(grid.device),
+                           backend="gloo",
+                           timeout_s=HYBRID_RANK_LIMIT_S, collective_timeout_s=120.0, threads=0)
+        wall = time.perf_counter() - t0
+    for sched in ("gpipe", "1f1b"):
+        r0, r1 = ranks[0][sched], ranks[1][sched]
+        if r0["loss_err"] > STEP_LOSS_TOL or r0["bad_leaf"] is not None:
+            fail(f"hybrid (b) {sched}: loss |diff| {r0['loss_err']:.2e}, grad leaf {r0['bad_leaf']} outside tolerance "
+                 f"(max abs err {r0['max_abs_err']:.3e})")
+        if r0["lstm"] + r1["lstm"] != 2 * HYBRID_MICRO * L * (M + N) or (r0["luong"], r1["luong"]) != (1, 1):
+            fail(f"hybrid (b) {sched}: lstm_cell launches {r0['lstm']} + {r1['lstm']}, luong_attn {r0['luong']}, "
+                 f"{r1['luong']}")
+        print(f"[hybrid] (b) 1x2 grid, two processes on this card over gloo (hand-offs through host memory), {sched}, "
+              f"fp32, dropout {cfg32.dropout}: loss {r0['loss']:.6f} vs meshless {float(loss):.6f} (|diff| "
+              f"{r0['loss_err']:.2e}); grads gathered from the stages, max_abs_err {r0['max_abs_err']:.3e} (atol "
+              f"{STEP_TOL['atol']}, rtol {STEP_TOL['rtol']}); lstm_cell launches per rank {r0['lstm']}, {r1['lstm']} "
+              f"(stage of 2 layers each); luong_attn 1 per rank (32 rows each); step {r0['step_s'] * 1e3:.0f} ms "
+              "(host-staged, not a speed figure)")
+    print(f"[hybrid] (b) both ranks done in {wall:.1f}s")
+    return lstm_total, luong_total
 
 
 def _median_ms(fn, runs: int, flush, hide_host: bool) -> float:
@@ -1667,8 +1851,10 @@ def main():
     tcfg = train_config()
     lstm_launches, train_luong_launches = phase_train(tcfg)
     phase_step_paths(tcfg)
-    records = phase_timing(serve_launches, train_luong_launches, ticks, max_err)
-    records.append(phase_lstm_timing(lstm_launches, lstm_err))
+    hybrid_lstm, hybrid_luong = phase_hybrid(tcfg)
+    records = phase_timing(serve_launches, train_luong_launches + hybrid_luong, ticks, max_err)
+    records.append(phase_lstm_timing(lstm_launches + hybrid_lstm, lstm_err))
+    records[1]["hybrid_launches"], records[-1]["hybrid_launches"] = hybrid_luong, hybrid_lstm
     flash_err = phase_flash_parity()
     lm_cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="bfloat16")
     t0 = time.perf_counter()

@@ -207,9 +207,11 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+                          total=None):
     """Token-level cross-entropy in fp32 with an optional mask; returns
-    (mean loss, denom)."""
+    (mean loss, denom).  ``total`` maps this call's token count to the count
+    the mean divides by (a sum over the ranks that hold the other rows)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -217,7 +219,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torc
     if mask is None:
         return nll.mean(), torch.tensor(float(nll.numel()), device=nll.device)
     mask = mask.float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    denom = torch.clamp(count if total is None else total(count), min=1.0)
     return (nll * mask).sum() / denom, denom
 
 

@@ -149,20 +149,40 @@ def init_stacked_lstm(ini: Initializer, path: str, num_layers: int, in_dim: int,
     return [init_lstm_cell(ini, f"{path}.l{li}", in_dim if li == 0 else hidden, hidden) for li in range(num_layers)]
 
 
-def dropout(h: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout: keep each unit with probability 1 - p and scale the
-    kept ones by 1 / (1 - p); the keep mask comes from ``generator``."""
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - p
+def dropout_keep(shape, p: float, generator: torch.Generator, device, rows: Optional[Tuple[int, int]] = None):
+    """The keep mask of inverted dropout (each unit kept with probability
+    1 - p), drawn from ``generator``.  With ``rows=(lo, full)`` the mask is
+    drawn for ``full`` rows and rows ``lo:lo + shape[0]`` are returned: a
+    rank holding some rows of a batch keeps the units that one process
+    holding all of them would."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    lo, full = rows
+    keep = torch.rand((full, *shape[1:]), generator=generator, device=device) < 1.0 - p
+    return keep[lo:lo + shape[0]]
+
+
+def apply_keep(h: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Kept units scaled by 1 / (1 - p), the rest zero, in h's dtype."""
     return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype, device=h.device)).to(h.dtype)
+
+
+def dropout(h: torch.Tensor, p: float, generator: torch.Generator, rows: Optional[Tuple[int, int]] = None
+            ) -> torch.Tensor:
+    """Inverted dropout: keep each unit with probability 1 - p and scale the
+    kept ones by 1 / (1 - p); the keep mask comes from ``generator``
+    (:func:`dropout_keep`)."""
+    return apply_keep(h, dropout_keep(h.shape, p, generator, h.device, rows), p)
 
 
 def run_stacked_lstm(params: List[dict], xs: torch.Tensor, states: Optional[List[LSTMCellState]] = None, *,
                      dropout_p: float = 0.0, generator: Optional[torch.Generator] = None,
-                     stage_kernel: str = "torch"):
+                     stage_kernel: str = "torch", rows: Optional[Tuple[int, int]] = None):
     """Sequential (layer-major) stacked LSTM: layer l runs over the whole
     sequence before layer l+1 starts.  With ``dropout_p > 0`` and a
     ``generator``, inverted dropout is applied between layers (not after
-    the last), as ``repro/models/lstm.py::run_stacked_lstm`` does."""
+    the last), as ``repro/models/lstm.py::run_stacked_lstm`` does; ``rows``
+    (see :func:`dropout_keep`) places xs's rows in a larger batch."""
     B = xs.shape[0]
     hidden = params[0]["wh"].shape[0]
     new_states = []
@@ -172,5 +192,5 @@ def run_stacked_lstm(params: List[dict], xs: torch.Tensor, states: Optional[List
         h, fin = run_lstm_layer(p, h, st, stage_kernel=stage_kernel)
         new_states.append(fin)
         if dropout_p > 0.0 and generator is not None and li < len(params) - 1:
-            h = dropout(h, dropout_p, generator)
+            h = dropout(h, dropout_p, generator, rows)
     return h, new_states

@@ -24,7 +24,7 @@ in one call where the JAX engine ``vmap``s over slots.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -128,25 +128,47 @@ def forward_no_input_feeding(
     *,
     generator: Optional[torch.Generator] = None,
     stage_kernel: str = "torch",
+    phase_boundary: Optional[Callable] = None,
+    backbone: Optional[Callable] = None,
+    total: Optional[Callable] = None,
 ):
     """HybridNMT forward -> (mean loss, {"logits", "denom"}).
     ``stage_kernel`` selects both the LSTM cells and the head's eq. 1-4
     (``"cuda"``: the fused kernels).  ``generator`` drives inter-layer
-    dropout (none without it)."""
+    dropout (none without it).
+
+    The multi-rank hooks (``ExecutionPlan`` supplies them): ``backbone``
+    replaces how the stacked LSTMs run, mapping (layer params, embedded
+    [B, S, e], generator) to hidden states [B, S, h] (the wavefront pipeline
+    substitutes here); ``phase_boundary`` maps the backbone's S and H to this
+    rank's head rows, and ``phase_boundary.rows`` the batch's masks and
+    labels to the same rows; ``total`` maps this rank's token count to the
+    grid's, so the loss is this rank's share of the single-process mean.  A
+    rank with no head rows (a MODEL stage below the top) returns a zero loss
+    that still reaches its backbone."""
     dt = resolve_dtype(cfg.dtype)
 
-    def run(ps, xs):
-        return lstm.run_stacked_lstm(ps, xs, dropout_p=cfg.dropout, generator=generator,
-                                     stage_kernel=stage_kernel)[0]
+    def run(ps, xs, gen):
+        return lstm.run_stacked_lstm(ps, xs, dropout_p=cfg.dropout, generator=gen, stage_kernel=stage_kernel)[0]
 
+    run = backbone or run
     src_e = _embed(params["src_emb"]["table"], batch.src, dt)
     tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
-    # ---- phase 1: the backbone (all hidden states) ----------------------
-    S = run(params["encoder"], src_e)  # [B, M, h]
-    H = run(params["decoder"], tgt_e)  # [B, N, h]
-    # ---- phase 2: the attention-softmax head ----------------------------
-    _, logits = attention_softmax_head(params["head"], S, H, batch.src_mask, stage_kernel=stage_kernel)
-    loss, denom = softmax_cross_entropy(logits, batch.tgt_out, batch.tgt_mask)
+    # ---- phase 1: model-parallel backbone (all hidden states) ----------
+    S = run(params["encoder"], src_e, generator)  # [B, M, h]
+    H = run(params["decoder"], tgt_e, generator)  # [B, N, h]
+    # ---- reshard boundary (the paper's hybrid hand-off) ----------------
+    src_mask, tgt_out, tgt_mask = batch.src_mask, batch.tgt_out, batch.tgt_mask
+    if phase_boundary is not None:
+        S, H = phase_boundary(S), phase_boundary(H)
+        src_mask, tgt_out, tgt_mask = (phase_boundary.rows(t) for t in (src_mask, tgt_out, tgt_mask))
+    if S.shape[0] == 0:
+        count = torch.zeros((), device=S.device)
+        denom = torch.clamp(total(count) if total is not None else count, min=1.0)
+        return (S.sum() + H.sum()).float() * 0.0, {"logits": None, "denom": denom}
+    # ---- phase 2: data-parallel attention-softmax ----------------------
+    _, logits = attention_softmax_head(params["head"], S, H, src_mask, stage_kernel=stage_kernel)
+    loss, denom = softmax_cross_entropy(logits, tgt_out, tgt_mask, total=total)
     return loss, {"logits": logits, "denom": denom}
 
 
@@ -157,17 +179,21 @@ def forward_input_feeding(
     *,
     generator: Optional[torch.Generator] = None,
     stage_kernel: str = "torch",
+    total: Optional[Callable] = None,
+    rows: Optional[tuple] = None,
 ):
     """Baseline / HybridNMTIF forward: Hc_{t-1} joins the first decoder
     layer's input (Fig. 1), so the decoder is one serial loop.  As in the
     JAX package, the cells are the plain ones and dropout applies to the
-    encoder only; ``stage_kernel`` selects the head."""
+    encoder only; ``stage_kernel`` selects the head.  On a batch-sharded
+    grid ``total`` sums the token count over the ranks and ``rows`` places
+    this rank's rows in the batch for the dropout masks."""
     dt = resolve_dtype(cfg.dtype)
     h = cfg.d_model
     B, N = batch.tgt_in.shape
     src_e = _embed(params["src_emb"]["table"], batch.src, dt)
     tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
-    S = lstm.run_stacked_lstm(params["encoder"], src_e, dropout_p=cfg.dropout, generator=generator)[0]
+    S = lstm.run_stacked_lstm(params["encoder"], src_e, dropout_p=cfg.dropout, generator=generator, rows=rows)[0]
     head = params["head"]
     dec = [lstm.cast_cell(p, dt) for p in params["decoder"]]
     states = [lstm.init_lstm_state(B, h, src_e.device) for _ in dec]
@@ -182,7 +208,7 @@ def forward_input_feeding(
         hs.append(hcur)
     H = torch.stack(hs, dim=1)  # [B, N, h]
     _, logits = attention_softmax_head(head, S, H, batch.src_mask, stage_kernel=stage_kernel)
-    loss, denom = softmax_cross_entropy(logits, batch.tgt_out, batch.tgt_mask)
+    loss, denom = softmax_cross_entropy(logits, batch.tgt_out, batch.tgt_mask, total=total)
     return loss, {"logits": logits, "denom": denom}
 
 

@@ -516,3 +516,48 @@ def test_graphed_moe_decode_matches_eager(cuda):
         assert moe_ops.moe_gemm_fused.launches == 3 * cfg.num_layers
         eager = engine.generate(prompts, steps, cuda_graph=False)
         assert graphed.tolist() == eager.tolist(), (S, steps)
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "zerobubble"])
+def test_hybrid_pipelined_step_matches_meshless_on_card(cuda, schedule):
+    """``chip_smoke.py``'s hybrid phase (a) at the smoke width (four layers):
+    the HYBRID pipelined step (micro_batches 2) on the trivial 1 x 1 grid
+    over NCCL, fp32 with dropout 0.3, against the meshless step on the same
+    batch and generator seed (loss within 1e-4, every grad leaf at atol 1e-4
+    / rtol 1e-3); its lstm_cell launches are the meshless micro_batches=2
+    step's plus the backward's recompute (k x layers x (M + N)), its
+    luong_attn launches one (the head runs once on the whole batch)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.data import MTBatchIterator, SyntheticMTTask
+    from repro_torch.launch.mesh import make_grid
+    from repro_torch.models import seq2seq as s2s
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.trainer import batch_to_device, make_grad_fn
+
+    cfg = dataclasses.replace(get_config("seq2seq-rnn", smoke=True), num_layers=4, dtype="float32", dropout=0.3)
+    params = s2s.init_seq2seq(0, cfg, device="cuda")
+    batch = batch_to_device(next(MTBatchIterator(SyntheticMTTask(vocab_size=cfg.vocab_size), 8, seed=0)), "cuda")
+    M, N = batch["src"].shape[1], batch["tgt_in"].shape[1]
+
+    def run(plan):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3)
+        lstm_ops.lstm_cell_fused.launches = 0
+        ops.reset_launches()
+        out = make_grad_fn(cfg, plan)(params, batch, g)
+        return out, lstm_ops.lstm_cell_fused.launches, ops.luong_attention_fused.launches
+
+    (loss, _, grads), _, _ = run(ExecutionPlan(stage_kernel="cuda"))
+    _, accum_lstm, accum_luong = run(ExecutionPlan(stage_kernel="cuda", micro_batches=2))
+    with make_grid(1, 1, device="cuda") as grid:
+        assert grid.backend == "nccl"
+        plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=2, schedule=schedule)
+        (ploss, _, pgrads), n_lstm, n_luong = run(plan)
+    assert abs(float(ploss) - float(loss)) < 1e-4
+    for i, (a, b) in enumerate(zip(tree_leaves(pgrads), tree_leaves(grads))):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=f"grad leaf {i}")
+    assert accum_lstm == 2 * cfg.num_layers * (M + N) and accum_luong == 2
+    assert n_lstm == accum_lstm + 2 * cfg.num_layers * (M + N) and n_luong == 1
