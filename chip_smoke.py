@@ -28,6 +28,12 @@ Phases, each printed as it runs; any failure exits nonzero:
 4. kernel vs plain, backward: fp32 grads through each kernel's
    ``autograd.Function`` against autograd through its plain version, at the
    full-width training shapes (and the Luong forward output beside them);
+   then the column-shard ``lstm_cell`` of the tensor-parallel backbone (h
+   [64, 1024] whole, c and the weights of Hs = 512 or 256 units, In 512 and
+   1024): every shard on the tensor-core kernel (LSTM_MMA_TOL, with the
+   h-rounding control) and on the FMA kernel (TOL_TIGHT) against the plain
+   version, each bit-identical to the square kernel's column block on the
+   same inputs, and its adjoint against autograd through the plain version;
 5. serving: the full-width ``seq2seq-rnn`` (4 layers, h=1024, V=32000, bf16,
    random weights from seed 0) through ``ContinuousEngine``: 8 requests on
    4 slots, so slots recycle; ``luong_attn`` launches once per decode tick,
@@ -57,14 +63,28 @@ Phases, each printed as it runs; any failure exits nonzero:
    this card over gloo (NCCL refuses two ranks on one card; the hand-offs go
    through host memory): one fp32 step on gpipe and 1f1b, its grads
    gathered from the two stages, against (a)'s meshless step; a rank that
-   fails or outlives its time limit fails the script;
+   fails or outlives its time limit fails the script.  (a) also runs the
+   interleaved ring (``schedule="interleaved"`` at v = 2 and 4 layer chunks)
+   as the other schedules, and one fp32 HYBRID_OPT step (its sharded code
+   paths, every placement trivial) against the meshless step.  (c) One
+   more spawn of two ranks on the card over gloo, with its own time limit:
+   one fp32 step each of MODEL and HYBRID on the tensor-parallel backbone at
+   1 x 2 (column-shard cells of 512 units), HYBRID_OPT at 2 x 1 (FSDP over
+   two ranks) and at 1 x 2 (the vocab-parallel head), and HYBRID on the ring
+   at 1 x 2 with v = 2, every grad leaf gathered whole against (a)'s
+   meshless step; then one bf16 step of each tensor-parallel layout, its
+   ``lstm_cell`` launches (layers x (M + N) a rank, every one on the
+   tensor-core kernel at the shard's shape) counted; each rank's allocated
+   bytes of params and Adam moments beside the meshless step's;
 9. timing with CUDA events: ``luong_attn`` at the decode tick on the
    "decode" route and at the training shape on the "wgmma" route, each
    beside the first kernel (the "fma" route), the plain version and the "torch" stage
    path's bf16 eq. 1-4 (cuBLAS GEMMs: the yardstick), with the scratch each
    allocates; ``lstm_cell`` at the training shape on the model's feed
    (L2 flushed and warm; and at In=512), beside the fp32-masters feed's FMA
-   kernel, the plain version and ``torch.lstm_cell`` in bf16;
+   kernel, the plain version and ``torch.lstm_cell`` in bf16; and the
+   column shard (Hs = 512) beside its plain version and ``torch.lstm_cell``
+   on the same GEMM;
 10. ``flash_attn`` kernel vs plain, on every route that takes the inputs:
     fp32 on the FMA kernel ("fma"); bf16 on the wgmma kernel ("wgmma", D=64
     and 128), the mma.sync kernel ("mma", D a multiple of 16) and the FMA
@@ -244,9 +264,20 @@ LSTM_HARNESS_SHAPES = [
 LSTM_MODEL_SHAPES = [dict(B=64, In=512, H=1024), dict(B=64, In=1024, H=1024)]
 LSTM_ROW_TILES_SHAPE = dict(B=130, In=40, H=72)  # three of the kernel's 64-row tiles, the last ragged
 LSTM_TIMING_SHAPE = LSTM_MODEL_SHAPES[1]
+# the tensor-parallel backbone's column-shard cells at full width: h [64, 1024] whole, Hs of the 1024 units
+# (Hs = 512 on a model axis of 2, 256 on 4), layer 0 (emb 512 in) and layers 1-3 (h 1024 in)
+LSTM_SHARD_SHAPES = [dict(B=64, In=i, H=1024, Hs=hs) for i in (512, 1024) for hs in (512, 256)]
+LSTM_SHARD_TIMING_SHAPE = dict(B=64, In=1024, H=1024, Hs=512)
 # fp32 comparisons of a whole training step (tests/test_plan.py's tolerance)
 STEP_TOL = dict(atol=1e-4, rtol=1e-3)
 STEP_LOSS_TOL = 1e-4
+# phase (c)'s bf16 tensor-parallel steps against the meshless bf16 step: the shard cells' h is the square
+# cell's column block bit for bit and its gather exact, so the loss reads |diff| 0 on the H100; each
+# rank's dx is its bf16 term of a sum over ``model``, rounded before the sum where the meshless dx is
+# rounded once, so the embeddings' grads read up to 5.5e-3 of their norm (one bf16 rounding); a wrong
+# block order, a stale or mis-typed h moves the grads by O(1) of their norm
+BF16_TP_LOSS_TOL = 1e-4
+BF16_TP_GRAD_REL = 2e-2  # per leaf, ||grad - meshless|| / ||meshless||
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 LUONG_REPLACES = "src/repro/kernels/luong_attn/kernel.py:30"
@@ -506,7 +537,7 @@ def _lstm_check(label, fname, args, tol, *, path=None):
     want = lstm_cell_ref(*args)
     err = 0.0
     for g, w, like in zip(got, want, args[1:3]):
-        if g.dtype != like.dtype or g.shape != like.shape:
+        if g.dtype != like.dtype or g.shape != args[2].shape:  # h' and c' have c's shape (a column shard's)
             fail(f"lstm_cell {label} {fname}: got {g.dtype} {tuple(g.shape)}")
         if not torch.isfinite(g.float()).all():
             fail(f"lstm_cell {label} {fname}: non-finite output")
@@ -561,6 +592,68 @@ def phase_lstm_parity() -> float:
         if not (torch.allclose(kh, lh, **TOL_TIGHT["float32"]) and torch.allclose(kc, lc, **TOL_TIGHT["float32"])):
             fail(f"lstm_cell kernel disagrees with torch.lstm_cell at {s}: {err:.3e}")
         print(f"[parity] lstm_cell {s} fp32 vs torch.lstm_cell: max_abs_err {err:.3e} (atol/rtol 1e-05) ok")
+    return worst
+
+
+def _shard_args(args, r: int, Hs: int) -> tuple:
+    """Column shard r of a whole cell's inputs: h whole, c and the weights'
+    units [r*Hs, (r+1)*Hs)."""
+    x, h, c, wx, wh, b = args
+    cols = slice(r * Hs, (r + 1) * Hs)
+    return x, h, c[:, cols].contiguous(), wx[..., cols].contiguous(), wh[..., cols].contiguous(), b[:, cols].contiguous()
+
+
+def phase_lstm_shard() -> float:
+    """The column-shard lstm_cell (the tensor-parallel backbone's cell: h
+    [64, 1024] whole, Hs of the units) at LSTM_SHARD_SHAPES, every shard: the
+    model's feed on the tensor-core kernel at LSTM_MMA_TOL and fp32 on the
+    FMA kernel at TOL_TIGHT, each against the plain version, and each shard's
+    output bit-identical to the whole (square) kernel's column block on the
+    same inputs; the h-rounding control must miss LSTM_MMA_TOL; then the
+    adjoint at fp32 against autograd through the plain version."""
+    worst = 0.0
+    rng = np.random.default_rng(9)
+    for s in LSTM_SHARD_SHAPES:
+        Hs, parts = s["Hs"], s["H"] // s["Hs"]
+        for fname, dts, tol, path in (("model_bf16w", BF16W_FEED, LSTM_MMA_TOL, "mma"),
+                                      ("float32", (torch.float32,) * 6, TOL_TIGHT["float32"], "fma")):
+            args = lstm_inputs(s, dts, seed=4, model_scales=True)
+            whole = lstm_ops.lstm_cell_fused(*args)
+            for r in range(parts):
+                sa = _shard_args(args, r, Hs)
+                worst = max(worst, _lstm_check(f"B{s['B']}-In{s['In']}-Hin{s['H']}-Hs{Hs} shard {r}", fname, sa, tol,
+                                               path=path))
+                got = lstm_ops.lstm_cell_fused(*sa)
+                cols = slice(r * Hs, (r + 1) * Hs)
+                if not (torch.equal(got[0], whole[0][:, cols]) and torch.equal(got[1], whole[1][:, cols])):
+                    fail(f"lstm_cell column shard {r} of {parts} at {s} {fname}: not bit-identical to the whole "
+                         "kernel's column block")
+            print(f"[parity] lstm_cell {s} {fname}: the {parts} shards' outputs are the whole {path} kernel's "
+                  "column blocks, bit for bit")
+            if path == "mma":  # the control: h rounded to bf16 must miss LSTM_MMA_TOL on a shard too
+                sa = _shard_args(args, 0, Hs)
+                got = lstm_ops.lstm_cell_fused(sa[0], sa[1].bfloat16().float(), *sa[2:])
+                want = lstm_cell_ref(*sa)
+                if all(torch.allclose(g, w, **LSTM_MMA_TOL) for g, w in zip(got, want)):
+                    fail(f"the h-rounding control met LSTM_MMA_TOL on the shard at {s}")
+                print(f"[parity] lstm_cell {s} shard control, h rounded to bf16: max_abs_err "
+                      f"{max((g - w).abs().max().item() for g, w in zip(got, want)):.3e} misses atol/rtol "
+                      f"{LSTM_MMA_TOL['atol']}")
+        sa = _shard_args(lstm_inputs(s, (torch.float32,) * 6, seed=5, model_scales=True), parts - 1, Hs)
+        dh = torch.from_numpy(rng.normal(size=(s["B"], Hs)).astype(np.float32)).cuda()
+        dc = torch.from_numpy(rng.normal(size=(s["B"], Hs)).astype(np.float32)).cuda()
+        grads = []
+        for fn in (lstm_ops.lstm_cell_fused, lstm_cell_ref):
+            ins = [a.clone().requires_grad_() for a in sa]
+            hn, cn = fn(*ins)
+            grads.append(torch.autograd.grad((hn * dh).sum() + (cn * dc).sum(), ins))
+        for name, g, w in zip(("x", "h", "c", "wx", "wh", "b"), *grads):
+            if g.shape != w.shape or not torch.allclose(g, w, **BWD_TOL):
+                fail(f"lstm_cell column-shard backward d{name} at {s}: kernel path vs plain max_abs_err "
+                     f"{(g - w).abs().max().item():.3e}")
+        print(f"[backward] lstm_cell column shard {s} fp32: grads of x, h (partial, [B, {s['H']}]), c, wx, wh, b "
+              f"max_abs_err {max((g - w).abs().max().item() for g, w in zip(*grads)):.3e} (atol/rtol "
+              f"{BWD_TOL['atol']}) ok")
     return worst
 
 
@@ -756,11 +849,26 @@ def phase_step_paths(cfg):
           f"(atol {STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
 
 
-HYBRID_SCHEDULES = ("gpipe", "1f1b", "zerobubble")
+# (schedule, virtual stages): the wavefront's three tables, then the interleaved ring at v = 2 and 4 chunks
+HYBRID_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("zerobubble", 1), ("interleaved", 2), ("interleaved", 4))
 HYBRID_MICRO = 2  # microbatches interleaved through the wavefront
 HYBRID_BF16_STEPS = 4  # per schedule; the median is over steps 2-4
 HYBRID_SEED = 7  # the dropout generator's seed, on every rank and in the meshless reference
 HYBRID_RANK_LIMIT_S = 600  # phase (b): both ranks, build and checks included
+LAYOUT_RANK_LIMIT_S = 600  # phase (c): both ranks, every layout
+# phase (c): (label, grid, plan keywords) of the layouts on two ranks of the card; the first two also take a bf16 step
+LAYOUT_CASES = (
+    ("model TP 1x2", (1, 2), dict(strategy="model")),
+    ("hybrid TP 1x2", (1, 2), dict(strategy="hybrid")),
+    ("hybrid_opt 2x1 (FSDP)", (2, 1), dict(strategy="hybrid_opt")),
+    ("hybrid_opt 1x2 (vocab-parallel head)", (1, 2), dict(strategy="hybrid_opt")),
+    ("hybrid interleaved v=2 1x2", (1, 2), dict(strategy="hybrid", use_pipeline=True, micro_batches=HYBRID_MICRO,
+                                                schedule="interleaved", virtual_stages=2)),
+)
+
+
+def _sched_label(sched: str, v: int) -> str:
+    return sched if v == 1 else f"{sched} v={v}"
 
 
 def _hybrid_batch(cfg, device):
@@ -771,6 +879,13 @@ def _hybrid_generator(device):
     g = torch.Generator(device=device)
     g.manual_seed(HYBRID_SEED)
     return g
+
+
+def _grad_rel_errors(grads, want) -> tuple:
+    """(largest ||a - b|| / ||b|| over the leaves, the index of that leaf)."""
+    rel = [((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(tree_leaves(grads), tree_leaves(want))]
+    i = int(np.argmax(rel))
+    return rel[i], i
 
 
 def _grad_errors(grads, want) -> tuple:
@@ -806,11 +921,79 @@ def hybrid_rank(grid, cfg, ref_path: str, schedules: tuple) -> dict:
         step_s = time.perf_counter() - t0
         res = {"lstm": lstm_ops.lstm_cell_fused.launches, "luong": luong_ops.luong_attention_fused.launches,
                "step_s": step_s}
-        whole = plan.gather_params(grads)
+        whole = plan.gather_params(grads, cfg)
         if grid.rank == 0:
             err, bad = _grad_errors(whole, [g.to(grid.device) for g in ref["grads"]])
             res.update(loss=float(loss), loss_err=abs(float(loss) - ref["loss"]), max_abs_err=err, bad_leaf=bad)
         out[sched] = res
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def layouts_rank(grid, cfg, ref_path: str) -> dict:
+    """Phase (c) on one rank of the two on the card (gloo, every collective
+    through host memory): for each of LAYOUT_CASES on a grid of its shape
+    over these two ranks, one fp32 step of the full-width ``cfg`` on this
+    rank's blocks, the grads gathered whole and held (rank 0) against the
+    meshless step's saved by the parent; the bytes of params and Adam
+    moments this rank stores; then for the tensor-parallel MODEL and HYBRID
+    one bf16 step, its kernels' launches counted and its loss and grads
+    (gathered whole) held against the meshless bf16 step's."""
+    from repro_torch.launch.mesh import ProcessGrid
+    from repro_torch.train.trainer import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    whole = s2s.init_seq2seq(0, cfg, device=grid.device)
+    batch = _hybrid_batch(cfg, grid.device)
+    ref = torch.load(ref_path, weights_only=False) if grid.rank == 0 else None
+    grids = {grid.shape: grid}
+    out = {}
+    cell = lstm_ops.lstm_cell_fused
+    for label, shape, kw in LAYOUT_CASES:
+        if shape not in grids:
+            grids[shape] = ProcessGrid(*shape, device=grid.device, timeout_s=grid.timeout.total_seconds())
+        g = grids[shape]
+        plan = ExecutionPlan(mesh=g, stage_kernel="cuda", **kw)
+        params = plan.shard_params(whole, cfg)
+        state = init_train_state(params, adam(lr=1e-3), plan=plan, cfg=cfg)
+        torch.cuda.synchronize()
+        res = {"param_bytes": _tree_bytes(state.params), "moment_bytes": _tree_bytes(state.opt_state.m)
+               + _tree_bytes(state.opt_state.v)}
+        del state
+        cell.launches = cell.mma_launches = cell.fma_launches = 0
+        luong_ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = make_grad_fn(cfg, plan)(params, batch, _hybrid_generator(grid.device))
+        float(loss)
+        res.update(step_s=time.perf_counter() - t0, lstm=cell.launches, lstm_fma=cell.fma_launches,
+                   luong=luong_ops.luong_attention_fused.launches)
+        full = plan.gather_params(grads, cfg)
+        del grads
+        if grid.rank == 0:
+            err, bad = _grad_errors(full, [x.to(grid.device) for x in ref["grads"]])
+            res.update(loss=float(loss), loss_err=abs(float(loss) - ref["loss"]), max_abs_err=err, bad_leaf=bad)
+        del full
+        if plan.tensor_parallel and kw["strategy"] in ("model", "hybrid"):
+            bplan = ExecutionPlan(mesh=g, stage_kernel="cuda", compute_dtype="bfloat16", **kw)
+            cell.launches = cell.mma_launches = 0
+            luong_ops.reset_launches()
+            bloss, _, bgrads = make_grad_fn(cfg, bplan)(params, batch, _hybrid_generator(grid.device))
+            res.update(bf16_loss=float(bloss), bf16_lstm=cell.launches, bf16_lstm_mma=cell.mma_launches,
+                       bf16_luong=luong_ops.luong_attention_fused.launches,
+                       bf16_luong_wgmma=luong_ops.luong_attention_fused.launches_by_route["wgmma"])
+            full = bplan.gather_params(bgrads, cfg)
+            del bgrads
+            if grid.rank == 0:
+                rel, leaf = _grad_rel_errors(full, [x.to(grid.device) for x in ref["bf16_grads"]])
+                res.update(bf16_loss_err=abs(float(bloss) - ref["bf16_loss"]), bf16_grad_rel=rel, bf16_grad_leaf=leaf)
+            del full
+        del params
+        torch.cuda.empty_cache()
+        out[label] = res
     return out
 
 
@@ -829,21 +1012,30 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
     batch = _hybrid_batch(cfg32, device)
     M, N, L = batch["src"].shape[1], batch["tgt_in"].shape[1], cfg32.num_layers
     loss, _, ref = make_grad_fn(cfg32, ExecutionPlan(stage_kernel="cuda"))(params, batch, _hybrid_generator(device))
+    # the meshless bf16 step, for phase (c)'s bf16 tensor-parallel steps
+    bloss, _, bref = make_grad_fn(cfg32, ExecutionPlan(stage_kernel="cuda", compute_dtype="bfloat16"))(
+        params, batch, _hybrid_generator(device))
+    bf16_ref = {"bf16_loss": float(bloss), "bf16_grads": [g.cpu() for g in tree_leaves(bref)]}
+    del bref
     cell = lstm_ops.lstm_cell_fused
     with make_grid(1, 1, device=device) as grid:
-        for sched in HYBRID_SCHEDULES:
-            plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=HYBRID_MICRO,
-                                 schedule=sched, stage_kernel="cuda")
-            ploss, _, grads = make_grad_fn(cfg32, plan)(params, batch, _hybrid_generator(device))
+        fp32_plans = [(_sched_label(sched, v), dict(strategy="hybrid", use_pipeline=True, micro_batches=HYBRID_MICRO,
+                                                     schedule=sched, virtual_stages=v))
+                      for sched, v in HYBRID_SCHEDULES]
+        fp32_plans.append(("hybrid_opt (sharded paths, trivial placement)", dict(strategy="hybrid_opt")))
+        for label, kw in fp32_plans:
+            plan = ExecutionPlan(mesh=grid, stage_kernel="cuda", **kw)
+            ploss, _, grads = make_grad_fn(cfg32, plan)(plan.shard_params(params, cfg32), batch, _hybrid_generator(device))
+            grads = plan.gather_params(grads, cfg32)
             dloss = abs(float(ploss) - float(loss))
             err, bad = _grad_errors(grads, ref)
             if dloss > STEP_LOSS_TOL or bad is not None:
-                fail(f"hybrid (a) {sched}: loss {float(ploss)} vs meshless {float(loss)}, grad leaf {bad} outside "
+                fail(f"hybrid (a) {label}: loss {float(ploss)} vs meshless {float(loss)}, grad leaf {bad} outside "
                      f"atol {STEP_TOL['atol']} rtol {STEP_TOL['rtol']} (max abs err {err:.3e})")
-            print(f"[hybrid] (a) 1x1 grid, {grid.backend}, {sched}, micro_batches {HYBRID_MICRO}, fp32, dropout {cfg32.dropout}, "
-                  f"batch 64 M={M} N={N}: loss {float(ploss):.6f} vs meshless {float(loss):.6f} (|diff| {dloss:.2e} <= "
-                  f"{STEP_LOSS_TOL}); {len(tree_leaves(grads))} grad leaves max_abs_err {err:.3e} (atol "
-                  f"{STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
+            print(f"[hybrid] (a) 1x1 grid, {grid.backend}, {label}, micro_batches {plan.micro_batches}, fp32, dropout "
+                  f"{cfg32.dropout}, batch 64 M={M} N={N}: loss {float(ploss):.6f} vs meshless {float(loss):.6f} "
+                  f"(|diff| {dloss:.2e} <= {STEP_LOSS_TOL}); {len(tree_leaves(grads))} grad leaves max_abs_err "
+                  f"{err:.3e} (atol {STEP_TOL['atol']}, rtol {STEP_TOL['rtol']})")
         del grads
 
         # launches: the meshless step with the same micro_batches, then the pipelined bf16 steps
@@ -860,9 +1052,10 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
         if accum_lstm != HYBRID_MICRO * L * (M1 + N1) or accum_luong != HYBRID_MICRO:
             fail(f"meshless micro_batches={HYBRID_MICRO} step: lstm_cell {accum_lstm} launches, luong_attn {accum_luong}")
         lstm_total = luong_total = 0
-        for sched in HYBRID_SCHEDULES:
+        for sched, v in HYBRID_SCHEDULES:
+            label = _sched_label(sched, v)
             plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=HYBRID_MICRO,
-                                 schedule=sched, stage_kernel="cuda", compute_dtype="bfloat16")
+                                 schedule=sched, virtual_stages=v, stage_kernel="cuda", compute_dtype="bfloat16")
             trainer = Trainer(tcfg, adam(lr=1e-3), it(), plan=plan, seed=0)
             twin = it()
             for step in range(1, HYBRID_BF16_STEPS + 1):
@@ -874,21 +1067,21 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
                 h = trainer.history[-1]
                 n_luong = luong_ops.luong_attention_fused.launches
                 if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
-                    fail(f"hybrid bf16 {sched} step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
+                    fail(f"hybrid bf16 {label} step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
                 if cell.launches != 2 * recompute or cell.mma_launches != cell.launches or n_luong != 1 \
                         or luong_ops.luong_attention_fused.launches_by_route["wgmma"] != 1:
-                    fail(f"hybrid bf16 {sched} step {step}: lstm_cell {cell.launches} launches ({cell.mma_launches} "
+                    fail(f"hybrid bf16 {label} step {step}: lstm_cell {cell.launches} launches ({cell.mma_launches} "
                          f"tensor-core), want forward + recompute = 2 x {recompute}; luong_attn {n_luong}, want 1 "
                          "on the wgmma route")
                 step_lstm = cell.launches
                 lstm_total += step_lstm
                 luong_total += n_luong
-            if sched == HYBRID_SCHEDULES[0]:  # one more step, not counted: where its time goes
+            if (sched, v) in (HYBRID_SCHEDULES[0], HYBRID_SCHEDULES[3]):  # one more step, not counted: where its time goes
                 _profile(lambda: trainer.run(1, log_every=1, log=lambda line: None),
-                         f"one hybrid pipelined step ({sched}, 1 x 1 grid, bf16)", top=10)
+                         f"one hybrid pipelined step ({label}, 1 x 1 grid, bf16)", top=10)
                 trainer.history.pop()
             ms = [x["step_s"] * 1e3 for x in trainer.history[1:]]
-            print(f"[hybrid] (a) bf16 over fp32 masters, {sched}, dropout {tcfg.dropout}, batch 64: median step "
+            print(f"[hybrid] (a) bf16 over fp32 masters, {label}, dropout {tcfg.dropout}, batch 64: median step "
                   f"{float(np.median(ms)):.1f} ms over steps 2-{HYBRID_BF16_STEPS} ({nvidia_smi_line()}); losses "
                   f"{[round(x['loss'], 4) for x in trainer.history]}; per step lstm_cell {step_lstm} launches, all "
                   f"tensor-core = the meshless micro_batches={HYBRID_MICRO} step's {accum_lstm} (k x layers x (M + N) "
@@ -896,9 +1089,11 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
                   f"at this step's M, N; luong_attn 1 (wgmma route) vs the meshless step's {accum_luong}: the head "
                   "runs once on the whole batch")
     # (b): two ranks on this card over gloo, against (a)'s meshless step
+    ref_loss, ref_grads = float(loss), [g.cpu() for g in tree_leaves(ref)]
+    meshless_bytes = (_tree_bytes(params), 2 * _tree_bytes(params))  # params; Adam's m and v
     with tempfile.TemporaryDirectory(prefix="hybrid-") as tmp:
         ref_path = os.path.join(tmp, "ref.pt")
-        torch.save({"loss": float(loss), "grads": [g.cpu() for g in tree_leaves(ref)]}, ref_path)
+        torch.save({"loss": ref_loss, "grads": ref_grads}, ref_path)
         del ref, params
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -921,7 +1116,70 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
               f"(stage of 2 layers each); luong_attn 1 per rank (32 rows each); step {r0['step_s'] * 1e3:.0f} ms "
               "(host-staged, not a speed figure)")
     print(f"[hybrid] (b) both ranks done in {wall:.1f}s")
-    return lstm_total, luong_total
+    tp_lstm, tp_luong = phase_layouts(cfg32, {"loss": ref_loss, "grads": ref_grads, **bf16_ref}, meshless_bytes,
+                                      M, N, L)
+    return lstm_total, luong_total, tp_lstm, tp_luong
+
+
+def phase_layouts(cfg32, ref: dict, meshless_bytes: tuple, M: int, N: int, L: int) -> tuple:
+    """Phase (c): LAYOUT_CASES on two ranks of this card over gloo, fp32
+    against (a)'s meshless step (``ref``: its loss and grads, and its bf16
+    twin's), then bf16 steps of the tensor-parallel layouts against the
+    meshless bf16 step, their launches counted (see ``layouts_rank``).
+    Returns those bf16 steps' lstm_cell (column-shard) and luong_attn
+    launches, both ranks summed."""
+    from repro_torch.launch.mesh import spawn_grid
+
+    ref_loss = ref["loss"]
+    with tempfile.TemporaryDirectory(prefix="layouts-") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, ref_path)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_grid(layouts_rank, 1, 2, args=(cfg32, ref_path), device="cuda:0", backend="gloo",
+                           timeout_s=LAYOUT_RANK_LIMIT_S, collective_timeout_s=120.0, threads=0)
+        wall = time.perf_counter() - t0
+    for label, shape, kw in LAYOUT_CASES:
+        r0, r1 = ranks[0][label], ranks[1][label]
+        if r0["loss_err"] > STEP_LOSS_TOL or r0["bad_leaf"] is not None:
+            fail(f"layouts (c) {label}: loss |diff| {r0['loss_err']:.2e}, grad leaf {r0['bad_leaf']} outside tolerance "
+                 f"(max abs err {r0['max_abs_err']:.3e})")
+        print(f"[layouts] (c) {label}, two processes on this card over gloo (collectives through host memory), fp32, "
+              f"dropout {cfg32.dropout}: loss {r0['loss']:.6f} vs meshless {ref_loss:.6f} (|diff| {r0['loss_err']:.2e}); "
+              f"grads gathered whole, max_abs_err {r0['max_abs_err']:.3e} (atol {STEP_TOL['atol']}, rtol "
+              f"{STEP_TOL['rtol']}); lstm_cell launches per rank {r0['lstm']}, {r1['lstm']} (FMA {r0['lstm_fma']}, "
+              f"{r1['lstm_fma']}); luong_attn {r0['luong']}, {r1['luong']}; stored params {r0['param_bytes']}, "
+              f"{r1['param_bytes']} B and Adam moments {r0['moment_bytes']}, {r1['moment_bytes']} B per rank vs the "
+              f"meshless step's {meshless_bytes[0]} and {meshless_bytes[1]}; step {r0['step_s'] * 1e3:.0f} ms "
+              "(host-staged, not a speed figure)")
+        if kw.get("use_pipeline"):
+            continue
+        sharded = r0["param_bytes"] < meshless_bytes[0] and r0["moment_bytes"] < meshless_bytes[1]
+        if not sharded:
+            fail(f"layouts (c) {label}: rank 0 stores {r0['param_bytes']} B of params, {r0['moment_bytes']} B of "
+                 f"moments, not less than the whole tree's {meshless_bytes}")
+        if "bf16_lstm" in r0:
+            want = L * (M + N)  # each rank: every layer's every step, on its column shard
+            for r, rr in enumerate((r0, r1)):
+                if rr["bf16_lstm"] != want or rr["bf16_lstm_mma"] != want or rr["bf16_luong"] != 1 \
+                        or rr["bf16_luong_wgmma"] != 1 or not np.isfinite(rr["bf16_loss"]):
+                    fail(f"layouts (c) {label} bf16 rank {r}: lstm_cell {rr['bf16_lstm']} launches "
+                         f"({rr['bf16_lstm_mma']} tensor-core), want {want}; luong_attn {rr['bf16_luong']} "
+                         f"({rr['bf16_luong_wgmma']} wgmma), want 1; loss {rr['bf16_loss']}")
+            if not r0["bf16_loss_err"] <= BF16_TP_LOSS_TOL or not r0["bf16_grad_rel"] <= BF16_TP_GRAD_REL:
+                fail(f"layouts (c) {label} bf16: loss |diff| {r0['bf16_loss_err']:.3e} from the meshless bf16 step "
+                     f"(bound {BF16_TP_LOSS_TOL}), grad leaf {r0['bf16_grad_leaf']} relative error "
+                     f"{r0['bf16_grad_rel']:.3e} (bound {BF16_TP_GRAD_REL})")
+            print(f"[layouts] (c) {label} bf16: loss {r0['bf16_loss']:.6f} vs meshless bf16 {ref['bf16_loss']:.6f} "
+                  f"(|diff| {r0['bf16_loss_err']:.3e} <= {BF16_TP_LOSS_TOL}); grads gathered whole, largest "
+                  f"||diff|| / ||meshless|| {r0['bf16_grad_rel']:.3e} (leaf {r0['bf16_grad_leaf']}, bound "
+                  f"{BF16_TP_GRAD_REL}); lstm_cell {r0['bf16_lstm']} + "
+                  f"{r1['bf16_lstm']} launches, all on the tensor-core kernel at the column shard (B=64, "
+                  f"H_in={cfg32.d_model}, Hs={cfg32.d_model // 2}) = layers x (M + N) a rank; luong_attn 1 a rank "
+                  "(wgmma route)")
+    print(f"[layouts] (c) both ranks done in {wall:.1f}s")
+    bf16 = [r[label] for r in ranks for label, _, _ in LAYOUT_CASES if "bf16_lstm" in r[label]]
+    return sum(x["bf16_lstm"] for x in bf16), sum(x["bf16_luong"] for x in bf16)
 
 
 def _median_ms(fn, runs: int, flush, hide_host: bool) -> float:
@@ -1027,14 +1285,53 @@ def _lstm_bound(args, outs) -> tuple:
     read once and each output written once, at their element sizes, against
     the gate products' flops at the bf16 tensor-core peak."""
     x, h = args[0], args[1]
-    B, In, H = x.shape[0], x.shape[1], h.shape[1]
+    B, In, Hin, H = x.shape[0], x.shape[1], h.shape[1], outs[0].shape[1]  # H < Hin: a column shard
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs))
-    flops = 2 * B * (In + H) * 4 * H
+    flops = 2 * B * (In + Hin) * 4 * H
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def phase_lstm_timing(launches: int, max_err: float) -> dict:
+def lstm_shard_timing(flush, runs: int, launches: int) -> dict:
+    """The column-shard cell at LSTM_SHARD_TIMING_SHAPE (h [64, 1024] whole,
+    512 units: the tensor-parallel backbone's cell on a model axis of 2) on
+    the model's feed, L2 flushed, beside its plain version; no PyTorch call
+    computes a column shard (``torch.lstm_cell`` takes c as wide as h), so
+    the yardstick is ``torch.lstm_cell`` on the same GEMM: a cell of Hs
+    units whose input is [x | h's other units], all bf16."""
+    s = LSTM_SHARD_TIMING_SHAPE
+    B, In, Hin, Hs = s["B"], s["In"], s["H"], s["Hs"]
+    x, h, c, wx, wh, b = _shard_args(lstm_inputs(s, (torch.float32,) * 6, seed=8, model_scales=True), 0, Hs)
+    xb = x.bfloat16()
+    w = lstm_ops.cast_weights(wx, wh, b, torch.bfloat16)
+    kernel = lambda: lstm_ops.lstm_cell_fused(xb, h, c, wx, wh, b, weights=w)  # noqa: E731
+    before = lstm_ops.lstm_cell_fused.mma_launches
+    got = kernel()
+    if lstm_ops.lstm_cell_fused.mma_launches != before + 1:
+        fail("the timed column shard did not take the tensor-core kernel")
+    plain_args = (xb, h, c, wx.bfloat16(), wh.bfloat16(), b.bfloat16())
+    err = max((g - v).abs().max().item() for g, v in zip(got, lstm_cell_ref(*plain_args)))
+    t = {"kernel": _median_ms(kernel, runs, flush, True),
+         "plain": _median_ms(lambda: lstm_cell_ref(*plain_args), runs, flush, True)}
+    # the yardstick: the same [B, In + Hin] x [In + Hin, 4 Hs] GEMM and update, as a cell of Hs units
+    x2 = torch.cat([xb, h[:, Hs:].bfloat16()], dim=1)
+    w2 = torch.cat([wx, wh[Hs:]], dim=0)
+    lib_args = (x2, (h[:, :Hs].bfloat16(), c.bfloat16()), w2.reshape(-1, 4 * Hs).t().contiguous().bfloat16(),
+                wh[:Hs].reshape(Hs, 4 * Hs).t().contiguous().bfloat16(), b.reshape(-1).bfloat16(),
+                torch.zeros(4 * Hs, dtype=torch.bfloat16, device="cuda"))
+    t["yardstick"] = _median_ms(lambda: torch.lstm_cell(*lib_args), runs, flush, True)
+    bound_ms, bound_by, nbytes, flops = _lstm_bound((xb, h, c, w.packed, w.b), got)
+    print(f"[timing] lstm_cell column shard at B={B} In={In} H_in={Hin} Hs={Hs} on the model's feed, median of "
+          f"{runs} runs, L2 flushed: {t['kernel']:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
+          f"3.35 TB/s, {flops} FLOP at 989 TFLOP/s), {t['kernel'] / bound_ms:.2f}x its bound; plain version "
+          f"{t['plain']:.4f} ms; yardstick torch.lstm_cell on the same GEMM (bf16, not a column shard) "
+          f"{t['yardstick']:.4f} ms; max_abs_err vs plain {err:.3e}; {launches} column-shard launches in the "
+          "tensor-parallel bf16 steps")
+    return {"shape": dict(s), "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "yardstick_ms": t["yardstick"], "launches": launches, "max_abs_err": err}
+
+
+def phase_lstm_timing(launches: int, max_err: float, shard_launches: int = 0) -> dict:
     """The lstm_cell kernel at the training step's shape on the model's feed
     (x bf16, the weights cast and packed once as a layer call does, h and c
     fp32: the tensor-core kernel), with the L2 flushed and warm (a layer's
@@ -1083,6 +1380,7 @@ def phase_lstm_timing(launches: int, max_err: float) -> dict:
         "name": "lstm_cell", "route": "cuda", "source": LSTM_SOURCE, "replaces": LSTM_REPLACES,
         "launches": launches, "max_abs_err": max_err, "ms": times["kernel"], "plain_ms": times["plain"],
         "bound_ms": record_bound[0], "bound_by": record_bound[1], "library_ms": times["library"],
+        "column_shard": lstm_shard_timing(flush, runs, shard_launches),
     }
 
 
@@ -1837,6 +2135,7 @@ def main():
     max_err = phase_parity()
     lstm_err = phase_lstm_parity()
     phase_backward()
+    lstm_err = max(lstm_err, phase_lstm_shard())
     cfg = dataclasses.replace(get_config("seq2seq-rnn"), dropout=0.0, dtype="bfloat16")
     t0 = time.perf_counter()
     params = s2s.init_seq2seq(0, cfg, device="cuda")
@@ -1851,10 +2150,10 @@ def main():
     tcfg = train_config()
     lstm_launches, train_luong_launches = phase_train(tcfg)
     phase_step_paths(tcfg)
-    hybrid_lstm, hybrid_luong = phase_hybrid(tcfg)
-    records = phase_timing(serve_launches, train_luong_launches + hybrid_luong, ticks, max_err)
-    records.append(phase_lstm_timing(lstm_launches + hybrid_lstm, lstm_err))
-    records[1]["hybrid_launches"], records[-1]["hybrid_launches"] = hybrid_luong, hybrid_lstm
+    hybrid_lstm, hybrid_luong, tp_lstm, tp_luong = phase_hybrid(tcfg)
+    records = phase_timing(serve_launches, train_luong_launches + hybrid_luong + tp_luong, ticks, max_err)
+    records.append(phase_lstm_timing(lstm_launches + hybrid_lstm + tp_lstm, lstm_err, tp_lstm))
+    records[1]["hybrid_launches"], records[-1]["hybrid_launches"] = hybrid_luong + tp_luong, hybrid_lstm + tp_lstm
     flash_err = phase_flash_parity()
     lm_cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="bfloat16")
     t0 = time.perf_counter()

@@ -43,12 +43,31 @@ fused cell ``kernels/lstm_cell`` on weights cast once per call
 between layers and the grads' dtypes are the meshless port's, so a pipelined
 step equals the meshless step up to the order of its sums.
 
+**Interleaved ring** (``virtual_stages=v > 1``, the port of JAX
+``pipeline.py:420-663``): each stage's Lp layers split into v chunks of Lc =
+Lp / v; chunk c on stage s is virtual stage vs = c*NS + s and holds global
+layers [vs*Lc, (vs+1)*Lc), so the chain of VS = v*NS virtual stages walks the
+stages as a ring.  Every tick each stage runs each of its chunks at
+token-step u = tick - vs, and hands the v chunks' top states [v, B/k, H] to
+stage s+1 (stage NS-1 to stage 0, which rolls them by one chunk: what stage
+NS-1's chunk c made feeds its chunk c+1) in one ``batch_isend_irecv``; with
+one stage the ring is local.  The backward mirrors it down the ring,
+recomputing each chunk from its saved boundary inputs.
+
 **Inter-layer dropout**: the JAX pipelined backbone drops it (``rng
 unused``); the port's wavefront applies the meshless backbone's: each
 layer's keep mask is drawn for the whole batch's [B, S, H] output in the
 meshless port's generator order (encoder layers, then decoder layers) and
 each rank keeps its own rows, so a pipelined step equals the meshless step
 at any dropout (ROADMAP queue 3).
+
+**Tensor-parallel backbone** (:func:`tensor_parallel_backbone`, JAX's MODEL
+layout): every ``model`` rank runs every layer on its data shard's rows, on
+the column shard of H/M units of each gate that it stores; per timestep its
+cell (``kernels/lstm_cell`` at the shard's shape) makes [B, H/M] of h, and an
+all-gather over ``model`` rebuilds h [B, H] for the next timestep and the
+next layer.  The backward reduce-scatters dh over ``model``: each rank's dh
+is its columns' term of the sum.
 """
 from __future__ import annotations
 
@@ -60,10 +79,6 @@ from repro_torch.core import strategy as stg
 from repro_torch.core.schedule import SCHEDULES, PipelineSchedule
 from repro_torch.models import lstm
 
-NOT_PORTED_INTERLEAVED = ("virtual_stages > 1: the interleaved ring executor is not ported "
-                          "(ROADMAP queue 1 item 4)")
-
-
 def stage_params(layer_params: List[dict], num_stages: int) -> List[List[dict]]:
     """[layer dicts] * L -> num_stages lists of Lp = L / num_stages layers,
     in order (the port's ``stack_pipeline_params``)."""
@@ -72,6 +87,17 @@ def stage_params(layer_params: List[dict], num_stages: int) -> List[List[dict]]:
         raise ValueError(f"{L} layers cannot split into {num_stages} stages")
     Lp = L // num_stages
     return [layer_params[s * Lp:(s + 1) * Lp] for s in range(num_stages)]
+
+
+def layer_stage(layer: int, num_layers: int, num_stages: int, virtual_stages: int = 1) -> int:
+    """The stage that owns global layer ``layer``: its virtual stage's
+    stage, virtual stage vs = c*NS + s holding layers [vs*Lc, (vs+1)*Lc)."""
+    if num_layers % num_stages:
+        raise ValueError(f"{num_layers} layers cannot split into {num_stages} stages")
+    Lp = num_layers // num_stages
+    if Lp % virtual_stages:
+        raise ValueError(f"{Lp} layers/device cannot split into {virtual_stages} virtual chunks")
+    return (layer // (Lp // virtual_stages)) % num_stages
 
 
 class _StageCells:
@@ -260,8 +286,9 @@ class _Wavefront:
 
 
 class _WavefrontFn(torch.autograd.Function):
-    """The pipelined stacked LSTM as one autograd node per stage: collectives
-    in its forward and in its backward."""
+    """One rank's part of a stacked LSTM that spans ranks (a pipeline stage,
+    a ring stage's chunks, a tensor-parallel layer) as one autograd node:
+    ``run`` holds the state, collectives in its forward and its backward."""
 
     @staticmethod
     def forward(ctx, run: _Wavefront, x, *weights):
@@ -273,6 +300,135 @@ class _WavefrontFn(torch.autograd.Function):
         run, ctx.run = ctx.run, None
         dx, dws = run.backward(dy)
         return (None, dx, *dws)
+
+
+class _Ring:
+    """One stage's part of one interleaved call: its v chunks on the ring
+    forward and the mirrored backward, holding what the backward needs."""
+
+    def __init__(self, grid, sched: PipelineSchedule, chunks: List[List[dict]], keeps: List[list],
+                 dropout_p: float, stage_kernel: str, dt: torch.dtype, axis: str):
+        self.grid, self.sched, self.axis = grid, sched, axis
+        self.s, self.NS, self.v = grid.index(axis), sched.num_stages, sched.chunks
+        self.VS = self.v * self.NS
+        # each chunk runs as a stage of the chain: its cells, masks and sweep
+        self.chunks = [_Wavefront(grid, sched, layers, kp, dropout_p, stage_kernel, dt, axis)
+                       for layers, kp in zip(chunks, keeps)]
+        self.dt = dt
+        self.hidden = chunks[0][0]["wh"].shape[0]
+
+    def _vs(self, ci: int) -> int:
+        return ci * self.NS + self.s
+
+    def _ring(self, sent: torch.Tensor, recv: torch.Tensor, up: bool) -> torch.Tensor:
+        """One hand-off of the chunks' [v, B/k, H] states around the ring:
+        up (s -> s+1, NS-1 -> 0, which rolls them one chunk up) or down (the
+        mirror).  Returns what this stage's chunks take in, chunk c at row c."""
+        s, NS = self.s, self.NS
+        got = sent
+        if NS > 1:
+            self.grid.exchange(send=sent, send_to=(s + 1) % NS if up else (s - 1) % NS,
+                               recv=recv, recv_from=(s - 1) % NS if up else (s + 1) % NS, axis=self.axis).wait()
+            got = recv
+        if up and s == 0:
+            return torch.roll(got, 1, dims=0)
+        if not up and s == NS - 1:
+            return torch.roll(got, -1, dims=0)
+        return got.clone()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, in] (read on stage 0; its shape elsewhere) -> the last
+        virtual stage's [B, S, H] output on stage NS-1 (zeros elsewhere)."""
+        k, v = self.sched.micro_batches, self.v
+        B, S, H = x.shape[0], x.shape[1], self.hidden
+        Bm = B // k
+        self.shape = (B, S, x.shape[2])
+        self.x_steps = x.reshape(k, Bm, S, -1).permute(0, 2, 1, 3).contiguous() if self.s == 0 else None
+        # the boundary inputs: every hand-off a chunk receives, kept for the backward
+        self.lefts = [x.new_empty((k, S, Bm, H)) if self._vs(ci) > 0 else None for ci in range(v)]
+        last = self.s == self.NS - 1
+        tops = x.new_empty((k, S, Bm, H)) if last else None
+        h, c = [None] * v, [None] * v
+        sent, recv = x.new_zeros((v, Bm, H)), x.new_empty((v, Bm, H))
+        for tau in range(self.sched.forward_ticks):
+            left = self._ring(sent, recv, up=True) if tau > 0 else None
+            for ci, ch in enumerate(self.chunks):
+                vs = self._vs(ci)
+                u = tau - vs
+                if not 0 <= u < k * S:
+                    continue
+                m, t = divmod(u, S)
+                if vs > 0:
+                    self.lefts[ci][m, t] = left[ci]
+                if t == 0:  # microbatches are independent row slices: the state resets
+                    h[ci], c[ci] = ch._zeros(Bm, x.device), ch._zeros(Bm, x.device)
+                first = self.x_steps[m, t] if vs == 0 else self.lefts[ci][m, t]
+                h[ci], c[ci], top = ch._sweep(first, h[ci], c[ci], m, t)
+                sent[ci] = top
+                if vs == self.VS - 1:
+                    tops[m, t] = top
+        if not last:
+            return x.new_zeros((B, S, H))
+        return tops.permute(0, 2, 1, 3).reshape(B, S, H)
+
+    def backward(self, dy: torch.Tensor):
+        """dy [B, S, H] (read on stage NS-1) -> (dx [B, S, in] on stage 0
+        else None, the chunks' weight grads [wx, wh, b] per layer, fp32)."""
+        k, v, NS, VS = self.sched.micro_batches, self.v, self.NS, self.VS
+        B, S, In = self.shape
+        Bm, H = B // k, self.hidden
+        dev = dy.device
+        dy_steps = dy.reshape(k, Bm, S, H).permute(0, 2, 1, 3) if self.s == NS - 1 else None
+        dws = [[[torch.zeros(p[n].shape, dtype=torch.float32, device=dev) for n in ("wx", "wh", "b")]
+                for p in ch.layers] for ch in self.chunks]
+        dx_steps = torch.zeros((k, S, Bm, In), dtype=self.dt, device=dev) if self.s == 0 else None
+        G = self.sched.bwd_group_size * S
+        for m0 in self.sched.bwd_group_starts:
+            # phase A: each chunk recomputes the group's forward from its saved boundary inputs
+            stash = [[] for _ in range(v)]
+            with torch.no_grad():
+                for ci, ch in enumerate(self.chunks):
+                    for j in range(G):
+                        mi, t = divmod(j, S)
+                        if t == 0:
+                            h, c = ch._zeros(Bm, dev), ch._zeros(Bm, dev)
+                        inputs = []
+                        first = self.x_steps[m0 + mi, t] if self._vs(ci) == 0 else self.lefts[ci][m0 + mi, t]
+                        hs, cs, _ = ch._sweep(first, h, c, m0 + mi, t, inputs)
+                        stash[ci].append((inputs, h, c))
+                        h, c = hs, cs
+            # phase B: the mirrored VS-deep wavefront, the hand-off grads sent down the ring
+            dh, dc = [None] * v, [None] * v
+            sent = torch.zeros((v, Bm, H), dtype=self.dt, device=dev)
+            recv = torch.empty((v, Bm, H), dtype=self.dt, device=dev)
+            for taub in range(G + VS - 1):
+                dleft = self._ring(sent, recv, up=False) if taub > 0 else None
+                for ci, ch in enumerate(self.chunks):
+                    vs = self._vs(ci)
+                    vb = taub - (VS - 1 - vs)
+                    if not 0 <= vb < G:
+                        continue
+                    j = G - 1 - vb
+                    mi, t = divmod(j, S)
+                    m = m0 + mi
+                    if t == S - 1:  # a microbatch's backward starts at its last step
+                        dh[ci], dc[ci] = ch._zeros(Bm, dev), ch._zeros(Bm, dev)
+                    g_out = dy_steps[m, t] if vs == VS - 1 else dleft[ci]
+                    inputs, h_in, c_in = stash[ci][j]
+                    for l in reversed(range(len(ch.layers))):
+                        if ch.keeps[l] is not None:  # the dropout's backward, in the compute dtype
+                            g_out = lstm.apply_keep(g_out, ch.keeps[l][m, t], ch.p)
+                        g_out, dh[ci][l], dc[ci][l], dw = ch.cells.backward(l, inputs[l], h_in[l], c_in[l],
+                                                                            dh[ci][l], dc[ci][l], g_out)
+                        for acc, d in zip(dws[ci][l], dw):
+                            acc += d
+                    if vs == 0:
+                        dx_steps[m, t] = g_out
+                    else:
+                        sent[ci] = g_out
+            del stash
+        dx = dx_steps.permute(0, 2, 1, 3).reshape(B, S, In) if self.s == 0 else None
+        return dx, [d for chunk in dws for layer in chunk for d in layer]
 
 
 def pipeline_lstm(grid, layer_params: List[dict], x: torch.Tensor, *, model_axis: str = "model",
@@ -296,27 +452,40 @@ def pipeline_lstm(grid, layer_params: List[dict], x: torch.Tensor, *, model_axis
         raise ValueError(f"stage_kernel must be one of {lstm.STAGE_KERNELS}, got {stage_kernel!r}")
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
-    if virtual_stages > 1:
-        raise NotImplementedError(NOT_PORTED_INTERLEAVED)
+    if virtual_stages > 1 and schedule != "interleaved":
+        raise ValueError(f"virtual_stages={virtual_stages} requires schedule='interleaved', got {schedule!r}")
     NS, s = grid.size(model_axis), grid.index(model_axis)
     B, S, _ = x.shape
     k = micro_batches
     if B % k:
         raise ValueError(f"batch {B} not divisible by micro_batches = {k}")
     stages = stage_params(layer_params, NS)
-    sched = PipelineSchedule(seq_len=S, num_stages=NS, micro_batches=k, kind=schedule)
-    assert sched.forward_ticks == k * S + NS - 1  # one fill/drain per STEP
+    v = virtual_stages
+    L, Lp, H = len(layer_params), len(stages[0]), layer_params[0]["wh"].shape[0]
+    if Lp % v:
+        raise ValueError(f"{Lp} layers/device cannot split into {v} virtual chunks")
+    sched = PipelineSchedule(seq_len=S, num_stages=NS, micro_batches=k, kind=schedule, chunks=v)
+    assert sched.forward_ticks == k * S + v * NS - 1  # one fill/drain per STEP
     # every rank draws every layer's mask, in the meshless generator order,
     # and keeps its own layers' masks at its rows, as [k, S, B/k, H]
-    L, Lp, H = len(layer_params), len(stages[0]), layer_params[0]["wh"].shape[0]
-    keeps = [None] * Lp
+    keeps = {}
     if dropout_p > 0.0 and generator is not None:
         for gl in range(L - 1):
             keep = lstm.dropout_keep((B, S, H), dropout_p, generator, x.device, rows)
-            if gl // Lp == s:
-                keeps[gl % Lp] = keep.reshape(k, B // k, S, H).permute(0, 2, 1, 3).contiguous()
-    run = _Wavefront(grid, sched, stages[s], keeps, dropout_p, stage_kernel, x.dtype, model_axis)
-    weights = [p[n] for p in stages[s] for n in ("wx", "wh", "b")]
+            if layer_stage(gl, L, NS, v) == s:
+                keeps[gl] = keep.reshape(k, B // k, S, H).permute(0, 2, 1, 3).contiguous()
+    if v == 1:
+        run = _Wavefront(grid, sched, stages[s], [keeps.get(s * Lp + l) for l in range(Lp)], dropout_p,
+                         stage_kernel, x.dtype, model_axis)
+        weights = [p[n] for p in stages[s] for n in ("wx", "wh", "b")]
+        return _WavefrontFn.apply(run, x, *weights)
+    # chunk c of stage s: virtual stage c*NS + s, global layers [vs*Lc, (vs+1)*Lc)
+    Lc = Lp // v
+    firsts = [(c * NS + s) * Lc for c in range(v)]
+    chunks = [layer_params[f:f + Lc] for f in firsts]
+    run = _Ring(grid, sched, chunks, [[keeps.get(f + l) for l in range(Lc)] for f in firsts], dropout_p,
+                stage_kernel, x.dtype, model_axis)
+    weights = [p[n] for chunk in chunks for p in chunk for n in ("wx", "wh", "b")]
     return _WavefrontFn.apply(run, x, *weights)
 
 
@@ -330,6 +499,77 @@ def batch_shard_backbone(grid, batch_axes: tuple, dropout: float = 0.0, stage_ke
         B = xs.shape[0]
         return lstm.run_stacked_lstm(layer_params, xs, dropout_p=dropout, generator=generator,
                                      stage_kernel=stage_kernel, rows=(i * B, n * B))[0]
+
+    return run
+
+
+class _TensorParallelLayer:
+    """One LSTM layer on this rank's column shard of its units: the forward
+    over the timesteps (the column-shard cell, then the all-gather of h over
+    ``model``) and its backward (the reduce-scatter of dh, then the cell's
+    adjoint)."""
+
+    def __init__(self, grid, axis: str, layer: dict, dt: torch.dtype, stage_kernel: str):
+        self.grid, self.axis, self.dt = grid, axis, dt
+        self.cells = _StageCells([layer], dt, stage_kernel)  # cast (and packed) once per layer call
+        self.hidden, self.units = layer["wh"].shape[0], layer["wh"].shape[2]
+        self.shapes = [layer[n].shape for n in ("wx", "wh", "b")]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, In] (the same on every ``model`` rank) -> h [B, S, H] in x's dtype."""
+        B, S, _ = x.shape
+        self.x_steps = x.transpose(0, 1).contiguous()  # [S, B, In]: each step's rows contiguous, as the cell takes
+        h = torch.zeros((B, self.hidden), dtype=torch.float32, device=x.device)
+        c = torch.zeros((B, self.units), dtype=torch.float32, device=x.device)
+        self.states = []
+        out = x.new_empty((B, S, self.hidden))  # contiguous, as the meshless stack and the head kernel take it
+        for t in range(S):
+            self.states.append((h, c))
+            h_shard, c = self.cells.forward(0, self.x_steps[t], h, c)
+            h = self.grid.all_gather(h_shard, self.axis, dim=1)
+            out[:, t] = h.to(self.dt)
+        return out
+
+    def backward(self, dy: torch.Tensor):
+        """dy [B, S, H] (this rank's term of the sum over ``model``) -> (dx
+        [B, S, In], this rank's term; [dwx, dwh, db] of the shard, fp32
+        sums over the timesteps)."""
+        S, B, In = self.x_steps.shape
+        dev = dy.device
+        dws = [torch.zeros(sh, dtype=torch.float32, device=dev) for sh in self.shapes]
+        dx = torch.empty((S, B, In), dtype=self.dt, device=dev)
+        dh = torch.zeros((B, self.hidden), dtype=torch.float32, device=dev)
+        dc = torch.zeros((B, self.units), dtype=torch.float32, device=dev)
+        no_out = torch.zeros((B, self.units), dtype=self.dt, device=dev)  # the output's grad arrives in dh_shard
+        for t in reversed(range(S)):
+            dh_shard = self.grid.reduce_scatter(dh + dy[:, t].float(), self.axis, dim=1)
+            h, c = self.states[t]
+            dx[t], dh, dc, dw = self.cells.backward(0, self.x_steps[t], h, c, dh_shard, dc, no_out)
+            for acc, d in zip(dws, dw):
+                acc += d
+        self.states = None
+        return dx.transpose(0, 1), dws
+
+
+def tensor_parallel_backbone(grid, model_axis: str = "model", dropout: float = 0.0, stage_kernel: str = "cuda"):
+    """The backbone of the tensor-parallel layouts (MODEL and HYBRID without
+    the pipeline, HYBRID_OPT): each rank runs every layer on its data shard's
+    rows and its column shard of the layer's units (``layer_params`` hold
+    [In, 4, H/M] blocks, gathered over ``data`` already where FSDP shards
+    them), with the meshless backbone's dropout masks of its rows: the same
+    on every ``model`` rank, so they drop the same units."""
+    axes = stg.data_axes(grid)
+    d, D = stg.axes_index(grid, axes), stg.axes_size(grid, axes)
+
+    def run(layer_params, xs, generator):
+        B = xs.shape[0]
+        h = xs
+        for li, p in enumerate(layer_params):
+            layer = _TensorParallelLayer(grid, model_axis, p, xs.dtype, stage_kernel)
+            h = _WavefrontFn.apply(layer, h, p["wx"], p["wh"], p["b"])
+            if dropout > 0.0 and generator is not None and li < len(layer_params) - 1:
+                h = lstm.dropout(h, dropout, generator, (d * B, D * B))
+        return h
 
     return run
 

@@ -7,15 +7,20 @@ MoE LM families under ``full_kv`` and ``window``.
 
     (strategy, process grid, pipeline stages, microbatches, overlap flags)
 
-* ``strategy`` and ``mesh``: SINGLE/DATA/MODEL/HYBRID (``core/strategy.py``)
-  on a :class:`~repro_torch.launch.mesh.ProcessGrid` of ``data x model``
-  ranks, or None for one process;
+* ``strategy`` and ``mesh``: SINGLE/DATA/MODEL/HYBRID/HYBRID_OPT
+  (``core/strategy.py``) on a :class:`~repro_torch.launch.mesh.ProcessGrid`
+  of ``data x model`` ranks, or None for one process;
 * ``use_pipeline`` (with MODEL or HYBRID on a grid): the stacked LSTMs run
   as the wavefront pipeline over the ``model`` ranks (``core/pipeline.py``),
   the k microbatches *interleaved inside one wavefront*, so the
   (NS-1)-tick fill/drain is paid once per step and the trainer does not
   also accumulate (``accum_steps == 1``); ``schedule`` (gpipe, 1f1b,
-  zerobubble, interleaved) drives its backward;
+  zerobubble, interleaved) drives its backward, and ``virtual_stages=v``
+  with ``interleaved`` runs v layer chunks per stage on the ring;
+* without it, MODEL or HYBRID on a ``model`` axis above 1, and HYBRID_OPT on
+  any grid, are the tensor-parallel layouts (:attr:`tensor_parallel`): each
+  leaf placed by the JAX rule, a rank storing only its blocks, the backbone
+  on column-shard cells (``core/pipeline.py::tensor_parallel_backbone``);
 * otherwise ``micro_batches`` is the classic gradient accumulation, and
   ``overlap`` delays the all-reduce of each microbatch's head grads (with
   ``bucket_bytes``: of every grad, in size-targeted buckets) by one
@@ -26,15 +31,16 @@ MoE LM families under ``full_kv`` and ``window``.
   weights, optimizer moments and grad sums stay fp32;
 * ``loss_scale_init`` / ``loss_scale_growth``: fp16's dynamic loss scale.
 
-Every validator of the JAX plan is kept.  Two layouts the JAX package has
-are not ported and raise by name (ROADMAP queue 1 item 4):
-``virtual_stages > 1`` (the interleaved ring executor) and MODEL or HYBRID on
-a ``model`` axis above 1 without the pipeline (the tensor-parallel
-backbone); so is ``strategy="hybrid_opt"`` on a grid.
+Every validator of the JAX plan is kept.
 
-Each rank holds the whole parameter tree; :meth:`ExecutionPlan.leaf_roles`
-says which leaves it owns (a pipeline stage its layers, stage 0 the
-embeddings) and over which axis each leaf's grad is summed.
+:meth:`ExecutionPlan.placement` places each leaf (per dim, the grid axis
+that shards it, or None): the JAX rule on the tensor-parallel layouts,
+nothing sharded on the others, where each rank holds the whole tree.
+:meth:`ExecutionPlan.shard_params` cuts a whole tree to this rank's blocks
+and :meth:`ExecutionPlan.gather_params` puts it back together;
+:meth:`ExecutionPlan.leaf_roles` says which leaves a rank owns (a pipeline
+stage its layers, stage 0 the embeddings), which axes shard each and over
+which axis its grad is summed.
 
 :class:`ServePlan`:
 
@@ -79,7 +85,6 @@ NOT_PORTED = frozenset({
     "strategy", "mesh", "page_size", "num_pages", "share_prefixes",
     "draft_arch", "draft_len", "acceptance",
 })
-NOT_PORTED_LAYOUT = "ROADMAP queue 1 item 4"
 
 
 # training compute precisions; params, optimizer moments and grad sums stay fp32
@@ -129,11 +134,13 @@ class WavefrontSchedule:
 
 class LeafRole(NamedTuple):
     """How one parameter leaf's grad is made whole on a grid: ``owner`` is
-    the ``model`` coordinate that computes it (None: every rank does), and
-    ``axis`` the grid axis its grad is summed over (None: no sum)."""
+    the ``model`` coordinate that computes it (None: every rank does),
+    ``axis`` the grid axis its grad is summed over (None: no sum), and
+    ``shard`` the axes that shard it (each rank holds its block)."""
 
     owner: Optional[int]
     axis: Optional[str]
+    shard: tuple = ()
 
 
 def _paths(tree, prefix=(), sort=False):
@@ -147,6 +154,13 @@ def _paths(tree, prefix=(), sort=False):
             yield from _paths(v, prefix + (i,), sort)
     else:
         yield prefix, tree
+
+
+def _placed_leaves(params, placed) -> list:
+    """The placement of each leaf of ``params``, in ``tree_leaves`` order."""
+    out: list = []
+    tree_map(lambda _, p: out.append(p), params, placed)
+    return out
 
 
 @dataclass(frozen=True)
@@ -215,21 +229,8 @@ class ExecutionPlan:
                 "applies to the accumulation schedule; a pipelined plan interleaves "
                 "its microbatches inside one wavefront fwd/bwd"
             )
-        # the JAX layouts the port does not have yet
         if self.mesh is not None and self.model_axis not in self.mesh.axis_names:
             raise ValueError(f"model_axis={self.model_axis!r} is not an axis of the grid {self.mesh.axis_names}")
-        if self.virtual_stages > 1:
-            raise NotImplementedError(
-                f"virtual_stages={self.virtual_stages}: the interleaved ring executor is not ported "
-                f"({NOT_PORTED_LAYOUT}); schedule='interleaved' runs at virtual_stages=1")
-        if self.strategy == stg.Strategy.HYBRID_OPT and self.mesh is not None:
-            raise NotImplementedError(stg.HYBRID_OPT_NOT_PORTED)
-        if (self.mesh is not None and self.strategy in (stg.Strategy.MODEL, stg.Strategy.HYBRID)
-                and self.mesh.size(self.model_axis) > 1 and not self.use_pipeline):
-            raise NotImplementedError(
-                f"strategy={self.strategy.value} on a model axis of {self.mesh.size(self.model_axis)} without "
-                f"use_pipeline: the tensor-parallel backbone is not ported ({NOT_PORTED_LAYOUT}); "
-                "pass use_pipeline=True for the wavefront pipeline")
 
     # -- derived structure --------------------------------------------------
 
@@ -241,6 +242,17 @@ class ExecutionPlan:
             and self.mesh is not None
             and self.strategy in (stg.Strategy.MODEL, stg.Strategy.HYBRID)
         )
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the plan is a tensor-parallel layout: MODEL or HYBRID on a
+        ``model`` axis above 1 without the pipeline, or HYBRID_OPT on any
+        grid.  Its ranks store the blocks :meth:`placement` gives them."""
+        S = stg.Strategy
+        if self.mesh is None or self.pipelined:
+            return False
+        return self.strategy == S.HYBRID_OPT or (
+            self.strategy in (S.MODEL, S.HYBRID) and self.mesh.size(self.model_axis) > 1)
 
     @property
     def num_stages(self) -> int:
@@ -318,6 +330,12 @@ class ExecutionPlan:
                 f"global batch {global_batch} not divisible by the {self.mesh.world} ranks the hybrid "
                 "phase boundary spreads the head's rows over"
             )
+        if (self.strategy == stg.Strategy.HYBRID and self.mesh is not None
+                and global_batch % (self.mesh.world * self.accum_steps)):
+            raise ValueError(
+                f"global batch {global_batch} not divisible by the {self.mesh.world} ranks x {self.accum_steps} "
+                "accumulated microbatches: each microbatch's head rows spread over every rank"
+            )
 
     def split_micro(self, batch: dict) -> list:
         """{name: [B, ...]} -> ``accum_steps`` dicts of [B/k, ...] slices of
@@ -347,13 +365,17 @@ class ExecutionPlan:
 
     def loss_axis(self) -> Optional[str]:
         """The grid axis the head's rows, and so the loss's token count, are
-        spread over (None: every rank sees all of them)."""
+        spread over (None: every rank sees all of them).  MODEL and
+        HYBRID_OPT on the tensor-parallel backbone run the head on the data
+        shard's rows on every ``model`` rank: over ``data``."""
         if self.mesh is None or self.strategy == stg.Strategy.SINGLE or self.mesh.world == 1:
             return None
+        if self.tensor_parallel and self.strategy != stg.Strategy.HYBRID:
+            return "data" if self.mesh.size("data") > 1 else None
         return "all"
 
     def phase_boundary(self) -> Callable:
-        return stg.phase_boundary_fn(self.strategy, self.mesh)
+        return stg.phase_boundary_fn(self.strategy, self.mesh, tensor_parallel=self.tensor_parallel)
 
     # -- backbone selection -------------------------------------------------
 
@@ -362,6 +384,14 @@ class ExecutionPlan:
         backbone (None: the plain layer loop on every row)."""
         from repro_torch.core import pipeline as pl  # local: avoid an import cycle
 
+        if self.tensor_parallel:
+            M = self.mesh.size(self.model_axis)
+            for name, n in (("d_model", cfg.d_model), ("vocab_size", cfg.vocab_size)):
+                if n % M:
+                    raise ValueError(f"the tensor-parallel layouts split {name}={n} over the model axis of {M}; "
+                                     "pick a model axis that divides it")
+            return pl.tensor_parallel_backbone(self.mesh, model_axis=self.model_axis, dropout=cfg.dropout,
+                                               stage_kernel=self.stage_kernel)
         if self.pipelined:
             return pl.pipeline_backbone(
                 self.mesh,
@@ -377,44 +407,81 @@ class ExecutionPlan:
                                            stage_kernel=self.stage_kernel)
         return None
 
+    # -- parameter placement ------------------------------------------------
+
+    def placement(self, cfg) -> dict:
+        """The placement tree of ``cfg``'s seq2seq parameters: for each leaf,
+        per dim, the grid axis that shards it or None.  The JAX rule
+        (``stg.param_placement``) on the tensor-parallel layouts; nothing
+        sharded on the others."""
+        from repro_torch.models import seq2seq as s2s  # local: avoid an import cycle
+
+        shapes = s2s.param_shapes(cfg)
+        if not self.tensor_parallel:
+            return stg.map_shapes(lambda shape: (None,) * len(shape), shapes)
+        return stg.param_placement(s2s.param_specs(cfg.num_layers), shapes, self.mesh, self.strategy)
+
+    def sharding(self, cfg) -> Optional[stg.Sharding]:
+        """The collectives of ``cfg``'s placement, for the model's forward
+        (None unless the plan is tensor-parallel)."""
+        if not self.tensor_parallel:
+            return None
+        return stg.Sharding(self.mesh, self.placement(cfg), self.model_axis)
+
+    def shard_params(self, params, cfg):
+        """This rank's blocks of ``cfg``'s whole tree ``params``
+        (``strategy.shard_params``)."""
+        return stg.shard_params(params, self.placement(cfg), self.mesh)
+
     # -- parameter ownership and grad sync ---------------------------------
 
-    def leaf_roles(self, params) -> list:
+    def leaf_roles(self, params, cfg) -> list:
         """One :class:`LeafRole` per leaf, in ``tree_leaves`` order.
 
         * no grid, SINGLE: every rank computes every grad whole;
         * DATA: every grad summed over the grid;
-        * MODEL/HYBRID: stage 0 owns the embeddings and stage s layers
-          [s*Lp, (s+1)*Lp) of the encoder and the decoder, each grad summed
-          over ``data``; the head is replicated and summed over the grid
-          (HYBRID), or owned by the top stage and summed over ``data``
-          (MODEL)."""
+        * MODEL/HYBRID pipelined or batch-sharded: stage 0 owns the
+          embeddings and each layer's stage (``pipeline.layer_stage``: stage
+          s layers [s*Lp, (s+1)*Lp), or its virtual stages' chunks on the
+          ring) owns it, each grad summed over ``data``; the head is
+          replicated and summed over the grid (HYBRID), or owned by the top
+          stage and summed over ``data`` (MODEL);
+        * tensor-parallel: each leaf sharded as :meth:`placement` says, its
+          grad summed over the axes that do not shard it (``grad_axes``)."""
+        from repro_torch.core.pipeline import layer_stage  # local: avoid an import cycle
+
         S = stg.Strategy
+        placed = _placed_leaves(params, self.placement(cfg))
         out = []
-        for path, _ in _paths(params):
+        for (path, _), p in zip(_paths(params), placed):
             if self.mesh is None or self.strategy == S.SINGLE:
                 out.append(LeafRole(None, None))
             elif self.strategy == S.DATA:
                 out.append(LeafRole(None, "all"))
+            elif self.tensor_parallel:
+                out.append(LeafRole(None, stg.axis_name(stg.grad_axes(p, self.mesh)), stg.leaf_axes(p)))
             elif path[0] in stg.HEAD_KEYS:
                 M = self.mesh.size(self.model_axis)
                 out.append(LeafRole(None, "all") if self.strategy == S.HYBRID else LeafRole(M - 1, "data"))
             elif path[0] in ("encoder", "decoder"):
                 L, M = len(params[path[0]]), self.mesh.size(self.model_axis)
-                if L % M:
-                    raise ValueError(f"{L} {path[0]} layers cannot split into {M} stages")
-                out.append(LeafRole(path[1] // (L // M), "data"))
+                v = self.virtual_stages if self.pipelined else 1
+                out.append(LeafRole(layer_stage(path[1], L, M, v), "data"))
             else:  # embeddings
                 out.append(LeafRole(0, "data"))
         return out
 
-    def gather_params(self, params):
-        """A copy of ``params`` in which every leaf holds its owner's value
-        (each owned leaf broadcast over the ``model`` axis from its stage):
-        what a checkpoint writes.  Every rank must call it."""
+    def gather_params(self, params, cfg):
+        """The whole tree from this rank's part of ``cfg``'s params: every
+        sharded leaf all-gathered along its sharded dims, every owned leaf
+        broadcast over the ``model`` axis from its stage; what a checkpoint
+        writes and the tests compare.  Every rank must call it."""
         leaves = [t.detach().clone() for t in tree_leaves(params)]
-        if self.mesh is not None and self.mesh.size(self.model_axis) > 1:
-            for leaf, role in zip(leaves, self.leaf_roles(params)):
+        if self.mesh is not None and self.tensor_parallel:
+            placed = _placed_leaves(params, self.placement(cfg))
+            leaves = [stg.gather_leaf(t, p, self.mesh) for t, p in zip(leaves, placed)]
+        elif self.mesh is not None and self.mesh.size(self.model_axis) > 1:
+            for leaf, role in zip(leaves, self.leaf_roles(params, cfg)):
                 if role.owner is not None:
                     self.mesh.broadcast(leaf, self.model_axis, role.owner)
         it = iter(leaves)

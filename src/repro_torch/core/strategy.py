@@ -14,14 +14,31 @@ HYBRID     the paper's contribution (§3.2): the backbone as MODEL, then the
            top stage's hidden states are scattered over ALL ranks
            (``phase_boundary``) and the attention-softmax head, replicated,
            runs data-parallel on every rank's rows
-HYBRID_OPT beyond the paper: a vocab-sharded head and FSDP; not ported
-           (ROADMAP queue 1 item 4)
+HYBRID_OPT beyond the paper: the backbone as MODEL without the pipeline,
+           the head vocab-sharded over ``model`` and the large weight
+           dims FSDP-sharded over ``data`` (ZeRO-3 style)
 ========== =============================================================
 
+MODEL and HYBRID without ``use_pipeline`` on a ``model`` axis above 1, and
+HYBRID_OPT on any grid, are the JAX package's tensor-parallel layouts: each
+parameter leaf is placed by the JAX rule (:func:`resolve_specs`, the port's
+copy of ``repro/core/strategy.py:47-198``), a rank stores only its block of
+each sharded dim (:func:`shard_leaf`), and :class:`Sharding` gathers what a
+computation needs whole.
+
 Where the JAX package maps logical axes to mesh axes and lets GSPMD insert
-the collectives, the port's ranks hold their own rows and call the
-collectives themselves: :func:`phase_boundary_fn` returns the reshard as an
-autograd ``Function`` with a collective in each direction.
+the collectives, the port's ranks hold their own rows and blocks and call the
+collectives themselves, each as an autograd ``Function`` with a collective in
+each direction: the phase boundary's scatter (:func:`phase_boundary_fn`), a
+gather of a sharded weight (its grad reduce-scattered), the vocab-parallel
+embedding lookup and cross-entropy.
+
+The gradients of activations that every ``model`` rank holds whole (the
+tensor-parallel backbone's h, the embeddings, a replicated head's inputs)
+are kept as each rank's term of a sum over ``model``: a column shard of the
+cell adds its columns' share, a rank's head rows their own.  So a leaf's
+grad is whole once it is summed over the grid axes that do not shard it
+(:func:`grad_axes`).
 """
 from __future__ import annotations
 
@@ -29,6 +46,8 @@ import enum
 from typing import Optional
 
 import torch
+
+from repro_torch.models.common import tree_map
 
 
 class Strategy(str, enum.Enum):
@@ -41,8 +60,23 @@ class Strategy(str, enum.Enum):
 
 HEAD_KEYS = ("head", "lm_head", "final_norm")  # the attention-softmax part
 
-HYBRID_OPT_NOT_PORTED = ("strategy='hybrid_opt' (vocab-sharded head, FSDP) is not ported: "
-                         "ROADMAP queue 1 item 4")
+# Logical names that may be sharded over the `model` axis, in priority order:
+# if several dims of one parameter are eligible, the first divisible one
+# wins and the rest stay replicated (one grid axis shards at most one dim).
+MODEL_AXIS_PRIORITY = (
+    "expert",
+    "vocab",
+    "kv_heads",
+    "q_groups",
+    "ff",
+    "qdim",
+    "kvdim",
+    "hdv",
+    "heads",
+)
+# Dims eligible for FSDP over `data` in HYBRID_OPT (weight-matrix dims).
+FSDP_ELIGIBLE = ("embed", "ff", "vocab", "qdim", "kvdim")
+FSDP_FLOOR = 1024  # a dim shorter than this is never FSDP-sharded
 
 
 def data_axes(grid) -> tuple:
@@ -96,6 +130,244 @@ def model_shard_size(strategy: Strategy, grid) -> int:
     if grid is None or strategy in (Strategy.SINGLE, Strategy.DATA):
         return 1
     return grid.size("model")
+
+
+# ---------------------------------------------------------------------------
+# parameter placement (the JAX rule, ``repro/core/strategy.py:124-198``)
+# ---------------------------------------------------------------------------
+
+
+def _resolve_leaf(spec: Optional[tuple], shape: tuple, grid, shard_model: bool, fsdp: bool) -> tuple:
+    """One leaf's placement: per dim, the grid axis that shards it or None."""
+    assigned = [None] * len(shape)
+    if spec is None:
+        spec = (None,) * len(shape)
+    if shard_model:
+        done = False
+        for name in MODEL_AXIS_PRIORITY:
+            if done:
+                break
+            for i, s in enumerate(spec):
+                if s == name and assigned[i] is None and not done and shape[i] % grid.size("model") == 0:
+                    assigned[i] = "model"
+                    done = True
+    if fsdp:
+        dsz = grid.size("data")
+        cands = [(shape[i], i) for i, s in enumerate(spec)
+                 if s in FSDP_ELIGIBLE and assigned[i] is None and shape[i] % dsz == 0 and shape[i] >= FSDP_FLOOR]
+        if cands:
+            assigned[max(cands)[1]] = "data"
+    return tuple(assigned)
+
+
+def map_shapes(fn, tree, *others):
+    """``fn(leaf, *other leaves)`` over a tree of dicts and lists whose
+    leaves are tuples (shapes, logical specs, placements), which
+    ``models.common.tree_map`` would walk into; ``others`` share its
+    structure."""
+    if isinstance(tree, dict):
+        return {k: map_shapes(fn, tree[k], *(o[k] for o in others)) for k in tree}
+    if isinstance(tree, list):
+        return [map_shapes(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree)]
+    return fn(tree, *others)
+
+
+def resolve_specs(specs, shapes, grid, strategy: Strategy, *, is_head: bool = False):
+    """A logical spec tree (leaves: tuples of logical dim names) and the
+    matching tree of whole shapes -> the placement tree (leaves: tuples of
+    a grid axis or None per dim), as the JAX rule resolves it."""
+    strategy = Strategy(strategy)
+    if grid is None or strategy in (Strategy.SINGLE, Strategy.DATA):
+        return map_shapes(lambda shape, spec: (None,) * len(shape), shapes, specs)
+    shard_model = not (strategy == Strategy.HYBRID and is_head)  # HYBRID: the head replicated (the paper)
+    fsdp = strategy == Strategy.HYBRID_OPT
+    return map_shapes(lambda shape, spec: _resolve_leaf(spec, tuple(shape), grid, shard_model, fsdp), shapes, specs)
+
+
+def param_placement(specs: dict, shapes: dict, grid, strategy: Strategy) -> dict:
+    """The whole tree's placement; top-level keys in HEAD_KEYS get the head
+    treatment (``repro/core/strategy.py::param_shardings``)."""
+    return {key: resolve_specs(specs[key], shapes[key], grid, strategy, is_head=key in HEAD_KEYS) for key in specs}
+
+
+def leaf_axes(placed: tuple) -> tuple:
+    """The grid axes that shard a leaf placed as ``placed``, in AXES order."""
+    return tuple(a for a in ("data", "model") if a in placed)
+
+
+def axis_name(axes: tuple) -> Optional[str]:
+    """The grid axis naming a set of axes: None, "data", "model" or "all"."""
+    axes = set(axes)
+    if not axes:
+        return None
+    if axes == {"data", "model"}:
+        return "all"
+    return axes.pop()
+
+
+def grad_axes(placed: tuple, grid) -> tuple:
+    """The axes of size > 1 a leaf's grad is summed over: those that do not
+    shard it (a sharded dim's grad arrives reduce-scattered or whole)."""
+    return tuple(a for a in ("data", "model") if a not in placed and grid.size(a) > 1)
+
+
+def shard_leaf(t: torch.Tensor, placed: tuple, grid) -> torch.Tensor:
+    """This rank's block of a whole leaf: along each sharded dim, block
+    ``index(axis)`` of ``size(axis)`` equal contiguous blocks (the layout of
+    a JAX ``PartitionSpec``); a copy, so the whole leaf can be freed."""
+    for dim, axis in enumerate(placed):
+        if axis is not None:
+            n = grid.size(axis)
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into {n} blocks over {axis!r}")
+            t = t.chunk(n, dim=dim)[grid.index(axis)]
+    return t.detach().clone().contiguous()
+
+
+def gather_leaf(t: torch.Tensor, placed: tuple, grid) -> torch.Tensor:
+    """The inverse of :func:`shard_leaf`, without autograd: the leaf whole
+    along every sharded dim (every rank calls it)."""
+    for dim, axis in enumerate(placed):
+        if axis is not None:
+            t = grid.all_gather(t, axis, dim=dim)
+    return t
+
+
+def shard_params(params, placement: dict, grid):
+    """This rank's blocks of the whole tree ``params`` under ``placement``
+    (``ExecutionPlan.placement``): each sharded leaf a contiguous block per
+    sharded dim, in rank order, as a JAX ``PartitionSpec`` lays it out;
+    every other leaf as it is."""
+    return tree_map(lambda t, p: shard_leaf(t, p, grid) if any(p) else t, params, placement)
+
+
+class _GatherFn(torch.autograd.Function):
+    """Forward: the blocks of ``axis`` gathered whole along ``dim``.
+    Backward: the grad summed over ``axis`` and this rank's block kept (a
+    reduce-scatter): the terms of every rank that used the whole weight."""
+
+    @staticmethod
+    def forward(ctx, t, grid, axis, dim):
+        ctx.grid, ctx.axis, ctx.dim = grid, axis, dim
+        return grid.all_gather(t, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.reduce_scatter(g.contiguous(), ctx.axis, dim=ctx.dim), None, None, None
+
+
+class _VocabEmbedFn(torch.autograd.Function):
+    """The embedding lookup on a vocab-sharded table: each rank looks up the
+    tokens its rows of the table hold (zeros elsewhere) and the ranks' rows
+    are summed over ``axis``.  Backward: the output's grad (each rank's term)
+    summed over ``axis``, then scattered into this rank's rows of the
+    table."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, grid, axis, dt):
+        V = table.shape[0]
+        lo = grid.index(axis) * V
+        mine = (tokens >= lo) & (tokens < lo + V)
+        idx = torch.where(mine, tokens - lo, torch.zeros_like(tokens)).long()
+        out = torch.where(mine[..., None], table[idx].float(), torch.zeros((), device=table.device))
+        grid.all_reduce(out, axis).wait()
+        ctx.save_for_backward(idx, mine)
+        ctx.grid, ctx.axis, ctx.shape = grid, axis, table.shape
+        return out.to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mine = ctx.saved_tensors
+        g = g.float().contiguous().clone()
+        ctx.grid.all_reduce(g, ctx.axis).wait()
+        dt = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        dt.index_put_((idx[mine],), g[mine], accumulate=True)
+        return dt, None, None, None, None
+
+
+class _VocabParallelCEFn(torch.autograd.Function):
+    """Masked token cross-entropy over logits whose vocab is sharded over
+    ``axis`` ([..., V/M] fp32 on each rank): the row max, the sum of
+    exponentials and the target's logit are all-reduced over ``axis``; the
+    backward is analytic, each rank's softmax minus its one-hot, so no
+    collective runs in it.  Returns this rank's share of the masked mean
+    (the same on every rank of ``axis``)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask, denom, grid, axis):
+        V = logits.shape[-1]
+        lo = grid.index(axis) * V
+        m = logits.max(dim=-1).values
+        grid.all_reduce(m, axis, op="max").wait()
+        e = torch.exp(logits - m[..., None])
+        sum_e = e.sum(dim=-1)
+        grid.all_reduce(sum_e, axis).wait()
+        mine = (labels >= lo) & (labels < lo + V)
+        idx = torch.where(mine, labels - lo, torch.zeros_like(labels)).long()
+        gold = torch.where(mine, torch.gather(logits, -1, idx[..., None])[..., 0], torch.zeros((), device=logits.device))
+        grid.all_reduce(gold, axis).wait()
+        lse = m + torch.log(sum_e)
+        w = mask.float() / denom
+        ctx.save_for_backward(logits, lse, idx, mine, w)
+        return ((lse - gold) * w).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, mine, w = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, idx[..., None], -mine.float()[..., None])
+        return d * (w * g)[..., None], None, None, None, None, None
+
+
+class Sharding:
+    """The compute side of a tensor-parallel placement on this rank: which
+    leaves are sharded over which axes (``placement``, the whole tree's), and
+    the collectives that gather a weight for a computation and scatter its
+    grad back."""
+
+    def __init__(self, grid, placement: dict, model_axis: str = "model"):
+        self.grid, self.placement, self.axis = grid, placement, model_axis
+
+    def gather(self, t: torch.Tensor, placed: tuple, keep: tuple = ()) -> torch.Tensor:
+        """``t`` (this rank's block) whole along every sharded dim whose axis
+        is not in ``keep``, differentiably (its grad reduce-scattered back)."""
+        for dim, axis in enumerate(placed):
+            if axis is not None and axis not in keep and self.grid.size(axis) > 1:
+                t = _GatherFn.apply(t, self.grid, axis, dim)
+        return t
+
+    def layers(self, key: str, layers: list) -> list:
+        """A stacked LSTM's layers for the column-shard cells: gathered over
+        ``data`` (FSDP), kept in their ``model`` column blocks."""
+        return [{n: self.gather(p[n], pl[n], keep=(self.axis,)) for n in p}
+                for p, pl in zip(layers, self.placement[key])]
+
+    def embed(self, key: str, table: torch.Tensor, tokens: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """The rows of ``tokens`` of embedding ``key`` in ``dt``: a masked
+        lookup in this rank's vocab block, summed over ``model``."""
+        placed = self.placement[key]["table"]
+        table = self.gather(table, placed, keep=(self.axis,))
+        if placed[0] == self.axis and self.grid.size(self.axis) > 1:
+            return _VocabEmbedFn.apply(table, tokens, self.grid, self.axis, dt)
+        return table[tokens.long()].to(dt)
+
+    def head(self, head: dict) -> dict:
+        """The head's weights for eq. 1-5: ``w_alpha`` and ``w_c`` whole (the
+        ``luong_attn`` kernel takes them whole), ``f_c`` in its vocab block."""
+        placed = self.placement["head"]
+        return {n: self.gather(w, placed[n], keep=(self.axis,) if n == "f_c" else ()) for n, w in head.items()}
+
+    @property
+    def vocab_parallel(self) -> bool:
+        return self.placement["head"]["f_c"][1] == self.axis and self.grid.size(self.axis) > 1
+
+    def cross_entropy(self, logits, labels, mask, total=None):
+        """(this rank's share of the masked mean, denom) over ``logits`` in
+        this rank's vocab block, as ``models.common.softmax_cross_entropy``
+        over the whole vocab."""
+        count = mask.float().sum()
+        denom = torch.clamp(count if total is None else total(count), min=1.0)
+        return _VocabParallelCEFn.apply(logits.float(), labels, mask, denom, self.grid, self.axis), denom
 
 
 # ---------------------------------------------------------------------------
@@ -153,25 +425,35 @@ class _ScatterFn(torch.autograd.Function):
         return (torch.cat(outs) if top else g.new_zeros(ctx.shape)), None
 
 
-class _ScatterToGrid:
-    """HYBRID on a model axis above 1: the rows of data shard d, held by its
-    top stage, go to the ranks (d, 0..M-1), rank (d, m) taking block m; so
-    global rank d*M + m holds block d*M + m of the batch, the order of JAX's
-    ``P(all_axes)``."""
+class _RowBlock:
+    """HYBRID on the tensor-parallel backbone: every ``model`` rank of data
+    shard d holds its rows whole, and rank (d, m) keeps block m of them
+    (block d*M + m of the batch, the order of JAX's ``P(all_axes)``).  The
+    slice's backward leaves the other blocks' grads zero: each rank's term of
+    the sum over ``model`` that the backbone's reduce-scatters take."""
 
     def __init__(self, grid):
         self.grid = grid
         self.M, self.m = grid.size("model"), grid.index("model")
 
     def __call__(self, x):
-        return _ScatterFn.apply(x, self.grid)
+        return self.rows(x)
 
     def rows(self, t):
         b = t.shape[0] // self.M
         return t[self.m * b:(self.m + 1) * b]
 
 
-def phase_boundary_fn(strategy: Strategy, grid: Optional[object]):
+class _ScatterToGrid(_RowBlock):
+    """HYBRID on a model axis above 1 of the pipeline: the rows of data shard
+    d, held by its top stage, go to the ranks (d, 0..M-1), rank (d, m)
+    taking block m, as :class:`_RowBlock` lays them out."""
+
+    def __call__(self, x):
+        return _ScatterFn.apply(x, self.grid)
+
+
+def phase_boundary_fn(strategy: Strategy, grid: Optional[object], tensor_parallel: bool = False):
     """The reshard applied to the backbone's outputs (S and H of the seq2seq
     model) before the attention-softmax phase.  The returned object maps a
     backbone output to this rank's head rows (``pb(x)``), and a tensor of the
@@ -182,11 +464,14 @@ def phase_boundary_fn(strategy: Strategy, grid: Optional[object]):
     model-parallel stages becoming data-parallel replicas: the paper's
     hand-off, one scatter in the forward and one gather in the backward.
     SINGLE/DATA: the identity.  MODEL: the identity on the top stage, no rows
-    elsewhere."""
-    if strategy == Strategy.HYBRID_OPT and grid is not None:
-        raise NotImplementedError(HYBRID_OPT_NOT_PORTED)
-    if grid is None or grid.size("model") == 1 or strategy in (Strategy.SINGLE, Strategy.DATA):
+    elsewhere.  On the ``tensor_parallel`` backbone (whose output every
+    ``model`` rank holds): HYBRID, each rank's block of its data shard's rows;
+    MODEL and HYBRID_OPT, the identity (the head keeps the ``data``
+    sharding, JAX ``strategy.py:248-255``)."""
+    if grid is None or grid.size("model") == 1 or strategy in (Strategy.SINGLE, Strategy.DATA, Strategy.HYBRID_OPT):
         return _Identity()
+    if tensor_parallel:
+        return _RowBlock(grid) if strategy == Strategy.HYBRID else _Identity()
     if strategy == Strategy.HYBRID:
         return _ScatterToGrid(grid)
     return _TopStageOnly(grid)

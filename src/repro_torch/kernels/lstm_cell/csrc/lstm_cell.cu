@@ -5,8 +5,12 @@
 //   h'    = sigmoid(o) tanh(c')
 //
 // Replaces repro/kernels/lstm_cell/kernel.py::_lstm_kernel (the Pallas TPU
-// kernel).  x [B,In], h/c [B,H], Wx [In,4,H], Wh [H,4,H], b [4,H]; h' is
-// written in h's dtype and c' in c's.  The gate pre-activations [B,4,H] never
+// kernel).  x [B,In], h [B,Hin], c [B,H], Wx [In,4,H], Wh [Hin,4,H], b [4,H];
+// h' [B,H] is written in h's dtype and c' in c's.  H = Hin is the whole cell;
+// H < Hin is a column shard of a cell of Hin units (the tensor-parallel
+// backbone's): the TPU kernel's own column tile, h read whole, the gates and
+// the state of H units computed.  A shard's output equals the same columns of
+// the whole cell's bit for bit: the depth [x | h] is walked in the same order.  The gate pre-activations [B,4,H] never
 // reach device memory: the nonlinearities and the state update run in the
 // same launch, which is the point of the TPU kernel.  Two kernels behind two
 // entry points; the wrapper (ops.py) picks one and counts it.
@@ -173,7 +177,7 @@ __device__ __forceinline__ void accumulate(const TA* __restrict__ A, const TW* _
 struct Args {
   const void *x, *h, *c, *wx, *wh, *b;
   void *h_out, *c_out;
-  int B, In, H;
+  int B, In, Hin, H;  // h is [B,Hin]; the cell computes H units
   int c_bf16, b_bf16;
 };
 
@@ -188,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) lstm_cell_kernel(Args a) {
 #pragma unroll
     for (int q = 0; q < kTN; ++q) acc[m][q] = 0.f;
   accumulate(static_cast<const TX*>(a.x), static_cast<const TWX*>(a.wx), a.In, a.B, a.H, r0, j0, acc, As, Ws);
-  accumulate(static_cast<const TH*>(a.h), static_cast<const TWH*>(a.wh), a.H, a.B, a.H, r0, j0, acc, As, Ws);
+  accumulate(static_cast<const TH*>(a.h), static_cast<const TWH*>(a.wh), a.Hin, a.B, a.H, r0, j0, acc, As, Ws);
 
   __syncthreads();  // As becomes the gate tile G[r][c]
   float* G = &As[0][0];
@@ -359,15 +363,15 @@ __device__ __forceinline__ void st_cluster(unsigned addr, float v) {
 }
 
 struct MmaArgs {
-  const bf16 *x, *w;      // x [B,In]; w packed [H/16][In/64 + H/64][64][64] (rounded up)
-  const void *h, *c, *b;  // h [B,H] of TH; c [B,H], b [4,H] fp32 or bf16
+  const bf16 *x, *w;      // x [B,In]; w packed [H/16][In/64 + Hin/64][64][64] (rounded up)
+  const void *h, *c, *b;  // h [B,Hin] of TH; c [B,H], b [4,H] fp32 or bf16
   void *h_out, *c_out;
-  int B, In, H;
+  int B, In, Hin, H;
   int c_bf16, b_bf16;
 };
 
 // Depth chunk q of the walk over [x | h]: chunks 0 .. nx-1 cover x's In
-// columns, nx .. cover h's H, kKC each.  One thread stages the block's weight
+// columns, nx .. cover h's Hin, kKC each.  One thread stages the block's weight
 // tile of the chunk (a bulk copy: the packing laid it out as the kernel reads
 // it, zero past In, H and the last unit) and the activation tile of rows
 // r0 .. r0 + 63 (tensor copies, 128B-swizzled, zero past B and the depth):
@@ -379,7 +383,7 @@ __device__ __forceinline__ void mma_stage(unsigned char* st, const MmaArgs& a, c
   const int k0 = (is_h ? q - nx : q) * kKC;
   const bool f32 = is_h && sizeof(TH) == 4;
   mbar_expect_bytes(bar, kWBytes + (f32 ? 2 : 1) * kMmaRows * kKC * 2);
-  bulk_copy(st, a.w + (static_cast<size_t>(tile) * (nx + ceil_div(a.H, kKC)) + q) * (kWBytes / 2), kWBytes, bar);
+  bulk_copy(st, a.w + (static_cast<size_t>(tile) * (nx + ceil_div(a.Hin, kKC)) + q) * (kWBytes / 2), kWBytes, bar);
   tensor_copy(st + kWBytes, is_h ? th : tx, k0, r0, bar);
   if (f32) tensor_copy(st + kWBytes + kMmaRows * 128, th, k0 + 32, r0, bar);
 }
@@ -511,7 +515,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
   const int tile = blockIdx.x / kSplit, r0 = blockIdx.y * kMmaRows, g0 = tile * kTileGrans;
   __syncthreads();
-  const int nx = ceil_div(a.In, kKC), nh = ceil_div(a.H, kKC);
+  const int nx = ceil_div(a.In, kKC), nh = ceil_div(a.Hin, kKC);
   const int q0 = split_point<TH>(rank, nx, nh), n = split_point<TH>(rank + 1, nx, nh) - q0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
 
@@ -671,7 +675,7 @@ template <typename TH>
 cudaError_t launch_mma(const MmaArgs& a, cudaStream_t stream) {
   CUtensorMap tx, th;
   cudaError_t err = encode_rows(&tx, a.x, a.B, a.In, 2);
-  if (err == cudaSuccess) err = encode_rows(&th, a.h, a.B, a.H, sizeof(TH));
+  if (err == cudaSuccess) err = encode_rows(&th, a.h, a.B, a.Hin, sizeof(TH));
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   if (err == cudaSuccess) err = mma_config<TH>(cfg, attr, a.B, a.H, stream);
@@ -684,28 +688,31 @@ cudaError_t launch_mma(const MmaArgs& a, cudaStream_t stream) {
 extern "C" {
 
 // The FMA kernel.  dtypes: codes of x, h, c, Wx, Wh, b (0 = float32,
-// 1 = bfloat16); Wx [In,4,H] and Wh [H,4,H] in the JAX layout; h_out has h's
-// dtype and c_out c's.  Returns the cudaError_t of the launch (0 = launched).
+// 1 = bfloat16); h [B,Hin], c [B,H], Wx [In,4,H] and Wh [Hin,4,H] in the JAX
+// layout; h_out [B,H] has h's dtype and c_out c's.  Returns the cudaError_t of
+// the launch (0 = launched).
 int lstm_cell_forward(const void* x, const void* h, const void* c, const void* wx, const void* wh, const void* b,
-                      void* h_out, void* c_out, int B, int In, int H, int x_dt, int h_dt, int c_dt, int wx_dt,
-                      int wh_dt, int b_dt, void* stream) {
-  if (c_dt < 0 || c_dt > 1 || b_dt < 0 || b_dt > 1) return cudaErrorInvalidValue;
-  const Args a{x, h, c, wx, wh, b, h_out, c_out, B, In, H, c_dt, b_dt};
+                      void* h_out, void* c_out, int B, int In, int Hin, int H, int x_dt, int h_dt, int c_dt,
+                      int wx_dt, int wh_dt, int b_dt, void* stream) {
+  if (B < 1 || In < 1 || Hin < 1 || H < 1 || c_dt < 0 || c_dt > 1 || b_dt < 0 || b_dt > 1)
+    return cudaErrorInvalidValue;
+  const Args a{x, h, c, wx, wh, b, h_out, c_out, B, In, Hin, H, c_dt, b_dt};
   const int codes[4] = {x_dt, h_dt, wx_dt, wh_dt};
   return dispatch<>(codes, a, static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core kernel.  x [B,In] bf16; w the packed bf16 weights
-// [H/8][4][8][In+H]; h, c [B,H] and b [4,H] of the codes h_dt, c_dt, b_dt;
-// In and H multiples of 8, every pointer 16-byte aligned.  h_out has h's
-// dtype and c_out c's.  Returns the cudaError_t of the launch (0 = launched).
+// [H/16][In/64 + Hin/64][64][64]; h [B,Hin], c [B,H] and b [4,H] of the codes
+// h_dt, c_dt, b_dt; In, Hin and H multiples of 8, every pointer 16-byte
+// aligned.  h_out [B,H] has h's dtype and c_out c's.  Returns the cudaError_t
+// of the launch (0 = launched).
 int lstm_cell_forward_mma(const void* x, const void* h, const void* c, const void* w, const void* b, void* h_out,
-                          void* c_out, int B, int In, int H, int h_dt, int c_dt, int b_dt, void* stream) {
-  if (B < 1 || In < 8 || H < 8 || In % 8 || H % 8 || ceil_div(B, kMmaRows) > 65535 || h_dt < 0 || h_dt > 1 ||
-      c_dt < 0 || c_dt > 1 || b_dt < 0 || b_dt > 1)
+                          void* c_out, int B, int In, int Hin, int H, int h_dt, int c_dt, int b_dt, void* stream) {
+  if (B < 1 || In < 8 || Hin < 8 || H < 8 || In % 8 || Hin % 8 || H % 8 || ceil_div(B, kMmaRows) > 65535 ||
+      h_dt < 0 || h_dt > 1 || c_dt < 0 || c_dt > 1 || b_dt < 0 || b_dt > 1)
     return cudaErrorInvalidValue;
-  const MmaArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w), h, c, b, h_out, c_out, B, In, H, c_dt,
-                  b_dt};
+  const MmaArgs a{static_cast<const bf16*>(x), static_cast<const bf16*>(w), h, c, b, h_out, c_out, B, In, Hin, H,
+                  c_dt, b_dt};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return h_dt == 0 ? launch_mma<float>(a, st) : launch_mma<bf16>(a, st);
 }

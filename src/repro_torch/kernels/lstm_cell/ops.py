@@ -11,6 +11,13 @@ from a kernel).  Two kernels:
   (split in the kernel into two bf16 terms, so it is not rounded) or bf16;
 * fp32 FMA, every other feed (fp32 weights, ragged widths).
 
+Both take the TPU kernel's column tile as well as the whole cell: h
+``[B, H_in]`` whole, c ``[B, Hs]``, wx ``[In, 4, Hs]``, wh ``[H_in, 4,
+Hs]``, b ``[4, Hs]`` give h', c' ``[B, Hs]``, the gates of Hs units of a
+cell of H_in (the tensor-parallel backbone's shard; Hs = H_in is the whole
+cell).  A shard's output is the same columns of the whole cell's, bit for
+bit, on either kernel.
+
 ``lstm_cell_fused.launches`` counts kernel launches,
 ``lstm_cell_fused.mma_launches`` and ``lstm_cell_fused.fma_launches`` those
 of each kernel.
@@ -50,9 +57,9 @@ def _library():
     lib = kernels.load_library("lstm_cell")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_cell_forward.argtypes = [vp] * 8 + [ci] * 9 + [vp]
+        lib.lstm_cell_forward.argtypes = [vp] * 8 + [ci] * 10 + [vp]
         lib.lstm_cell_forward.restype = ci
-        lib.lstm_cell_forward_mma.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        lib.lstm_cell_forward_mma.argtypes = [vp] * 7 + [ci] * 7 + [vp]
         lib.lstm_cell_forward_mma.restype = ci
         lib.lstm_cell_error_string.argtypes = [ci]
         lib.lstm_cell_error_string.restype = ctypes.c_char_p
@@ -63,36 +70,39 @@ def _library():
 class CellWeights(NamedTuple):
     """The weights one cell computes with, detached from autograd."""
 
-    wx: torch.Tensor  # [In, 4, H]: the values of the products (fp32 copies of the rounded weights on a bf16 feed)
-    wh: torch.Tensor  # [H, 4, H]
-    b: torch.Tensor  # [4, H]
+    wx: torch.Tensor  # [In, 4, Hs]: the values of the products (fp32 copies of the rounded weights on a bf16 feed)
+    wh: torch.Tensor  # [H_in, 4, Hs]
+    b: torch.Tensor  # [4, Hs]
     packed: Optional[torch.Tensor]  # bf16 [T, NC, 64, 64] for the tensor-core kernel, else None
 
 
 def pack_weights(wx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
-    """wx [In, 4, H], wh [H, 4, H] (any dtype, H a multiple of 8) -> the
-    tensor-core kernel's bf16 copy [T, NC, 64, 64], laid out as the kernel's
-    shared-memory tiles so that each is one bulk copy: T = ceil(H / 16) tiles
-    of 16 units, NC = ceil(In / 64) + ceil(H / 64) chunks of 64 along the
-    depth [x | h].  Row n of a tile is gate column (n // 32 granule, n // 8 % 4
-    gate, n % 8 unit) of units 16 t + 8 (n // 32) + n % 8, its 64 depths
-    K-major with the 128-byte swizzle: the 16-byte group j lands at j ^ (n % 8).
-    Zero past In, H and the last unit."""
+    """wx [In, 4, Hs], wh [H_in, 4, Hs] (any dtype, Hs a multiple of 8) ->
+    the tensor-core kernel's bf16 copy [T, NC, 64, 64], laid out as the
+    kernel's shared-memory tiles so that each is one bulk copy: T = ceil(Hs /
+    16) tiles of 16 units, NC = ceil(In / 64) + ceil(H_in / 64) chunks of 64
+    along the depth [x | h].  Row n of a tile is gate column (n // 32
+    granule, n // 8 % 4 gate, n % 8 unit) of units 16 t + 8 (n // 32) + n %
+    8, its 64 depths K-major with the 128-byte swizzle: the 16-byte group j
+    lands at j ^ (n % 8).  Zero past In, H_in and the last unit.  A column
+    shard's tiles are the whole cell's tiles of its units."""
     In, _, H = wx.shape
-    G, nxc, nhc = H // _GRANULE, -(-In // _CHUNK), -(-H // _CHUNK)
+    Hin = wh.shape[0]
+    G, nxc, nhc = H // _GRANULE, -(-In // _CHUNK), -(-Hin // _CHUNK)
     T, NC = -(-G // 2), nxc + nhc
     w = torch.zeros((2 * T, 4, _GRANULE, NC * _CHUNK), dtype=torch.bfloat16, device=wx.device)
     w[:G, ..., :In] = wx.detach().view(In, 4, G, _GRANULE).permute(2, 1, 3, 0)
-    w[:G, ..., nxc * _CHUNK:nxc * _CHUNK + H] = wh.detach().view(H, 4, G, _GRANULE).permute(2, 1, 3, 0)
+    w[:G, ..., nxc * _CHUNK:nxc * _CHUNK + Hin] = wh.detach().view(Hin, 4, G, _GRANULE).permute(2, 1, 3, 0)
     w = w.view(T, 64, NC, 8, 8).permute(0, 2, 1, 3, 4)  # [tile, chunk, row n, 16-byte group, 8 values]
     swz = torch.arange(8, device=wx.device)[None, :] ^ torch.arange(64, device=wx.device)[:, None] % 8
     return w[:, :, torch.arange(64, device=wx.device)[:, None], swz].reshape(T, NC, 64, 64).contiguous()
 
 
-def _packable(wx: torch.Tensor, dtype: torch.dtype) -> bool:
-    """Whether the tensor-core kernel takes a feed of this dtype and width."""
+def _packable(wx: torch.Tensor, wh: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether the tensor-core kernel takes a feed of this dtype and widths."""
     In, _, H = wx.shape
-    return wx.device.type == "cuda" and dtype == torch.bfloat16 and In % 8 == 0 and H % 8 == 0
+    return (wx.device.type == "cuda" and dtype == torch.bfloat16 and In % 8 == 0 and H % 8 == 0
+            and wh.shape[0] % 8 == 0)
 
 
 def cast_weights(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> CellWeights:
@@ -103,23 +113,23 @@ def cast_weights(wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor, dtype: tor
     At fp32 this is the masters themselves: no copy."""
     with torch.no_grad():
         wx_r, wh_r, b_r = (t.detach().to(dtype).float() for t in (wx, wh, b))
-        packed = pack_weights(wx, wh) if _packable(wx, dtype) else None
+        packed = pack_weights(wx, wh) if _packable(wx, wh, dtype) else None
     return CellWeights(wx_r, wh_r, b_r, packed)
 
 
 def _check_shapes(x, h, c, wx, wh, b):
-    if x.dim() != 2 or h.dim() != 2:
-        raise ValueError(f"expected x [B,In], h [B,H]; got {tuple(x.shape)}, {tuple(h.shape)}")
+    if x.dim() != 2 or h.dim() != 2 or c.dim() != 2:
+        raise ValueError(f"expected x [B,In], h [B,H_in], c [B,Hs]; got {tuple(x.shape)}, {tuple(h.shape)}, "
+                         f"{tuple(c.shape)}")
     B, In = x.shape
-    H = h.shape[1]
-    want = {"h": (B, H), "c": (B, H), "wx": (In, 4, H), "wh": (H, 4, H), "b": (4, H)}
+    Hin, H = h.shape[1], c.shape[1]
+    want = {"h": (B, Hin), "c": (B, H), "wx": (In, 4, H), "wh": (Hin, 4, H), "b": (4, H)}
     for name, t in (("h", h), ("c", c), ("wx", wx), ("wh", wh), ("b", b)):
         if tuple(t.shape) != want[name]:
-            raise ValueError(
-                f"{name} is {tuple(t.shape)}, expected {want[name]} for x {tuple(x.shape)}, h {tuple(h.shape)}"
-            )
-    if min(B, In, H) < 1:
-        raise ValueError(f"empty dimension in B={B} In={In} H={H}")
+            raise ValueError(f"{name} is {tuple(t.shape)}, expected {want[name]} for x {tuple(x.shape)}, "
+                             f"h {tuple(h.shape)}, c {tuple(c.shape)}")
+    if min(B, In, Hin, H) < 1:
+        raise ValueError(f"empty dimension in B={B} In={In} H_in={Hin} Hs={H}")
 
 
 def _check_kernel_inputs(x, ins, align16: bool):
@@ -136,33 +146,33 @@ def _check_kernel_inputs(x, ins, align16: bool):
 
 def _launch(x, h, c, w: CellWeights):
     B, In = x.shape
-    H = h.shape[1]
+    Hin, H = h.shape[1], c.shape[1]
     mma = w.packed is not None and x.dtype == torch.bfloat16
     if mma:
         ins = (("x", x), ("h", h), ("c", c), ("packed", w.packed), ("b", w.b))
         _check_kernel_inputs(x, ins, align16=True)
         if w.packed.dtype != torch.bfloat16 or tuple(w.packed.shape) != (
-                -(-H // (2 * _GRANULE)), -(-In // _CHUNK) + -(-H // _CHUNK), 64, 64):
+                -(-H // (2 * _GRANULE)), -(-In // _CHUNK) + -(-Hin // _CHUNK), 64, 64):
             raise ValueError(f"packed weights {w.packed.dtype} {tuple(w.packed.shape)} do not match x {tuple(x.shape)}")
     else:
         ins = (("x", x), ("h", h), ("c", c), ("wx", w.wx), ("wh", w.wh), ("b", w.b))
         _check_kernel_inputs(x, ins, align16=False)
-    if -(-B // _ROWS_PER_BLOCK) > _MAX_GRID_Y or max(B * In, B * H, (In + H) * 4 * H) >= 2**31:
-        raise ValueError(f"B={B} In={In} H={H} exceed the kernel's grid or int32 sizes")
+    if -(-B // _ROWS_PER_BLOCK) > _MAX_GRID_Y or max(B * In, B * Hin, (In + Hin) * 4 * H) >= 2**31:
+        raise ValueError(f"B={B} In={In} H_in={Hin} Hs={H} exceed the kernel's grid or int32 sizes")
     lib = _library()
     with torch.cuda.device(x.device):
-        h_out, c_out = torch.empty_like(h), torch.empty_like(c)
+        h_out, c_out = torch.empty((B, H), dtype=h.dtype, device=h.device), torch.empty_like(c)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if mma:
             err = lib.lstm_cell_forward_mma(
                 x.data_ptr(), h.data_ptr(), c.data_ptr(), w.packed.data_ptr(), w.b.data_ptr(),
-                h_out.data_ptr(), c_out.data_ptr(), B, In, H,
+                h_out.data_ptr(), c_out.data_ptr(), B, In, Hin, H,
                 _DTYPE_CODES[h.dtype], _DTYPE_CODES[c.dtype], _DTYPE_CODES[w.b.dtype], stream,
             )
         else:
             err = lib.lstm_cell_forward(
                 x.data_ptr(), h.data_ptr(), c.data_ptr(), w.wx.data_ptr(), w.wh.data_ptr(), w.b.data_ptr(),
-                h_out.data_ptr(), c_out.data_ptr(), B, In, H, *(_DTYPE_CODES[t.dtype] for _, t in ins), stream,
+                h_out.data_ptr(), c_out.data_ptr(), B, In, Hin, H, *(_DTYPE_CODES[t.dtype] for _, t in ins), stream,
             )
     if err != 0:
         raise RuntimeError(f"lstm_cell launch failed: {lib.lstm_cell_error_string(err).decode()} ({err})")
@@ -177,10 +187,13 @@ def _launch(x, h, c, w: CellWeights):
 def lstm_cell_adjoint(x, h, c, wx, wh, b, dh_new, dc_new):
     """Analytic fp32 adjoint of one LSTM cell, gates recomputed from the
     saved inputs (the port of ``repro/kernels/lstm_cell/ops.py::
-    lstm_cell_adjoint``).  (x [B, In], h/c [B, H] previous state, dh_new /
-    dc_new cotangents of the new state, any dtype) -> fp32 (dx, dh, dc, dwx,
-    dwh, db)."""
+    lstm_cell_adjoint``).  (x [B, In], h [B, H_in] and c [B, Hs] previous
+    state, dh_new / dc_new [B, Hs] cotangents of the new state, any dtype)
+    -> fp32 (dx [B, In], dh [B, H_in], dc [B, Hs], dwx [In, 4, Hs], dwh
+    [H_in, 4, Hs], db [4, Hs]).  On a column shard (Hs < H_in) dx and dh are
+    this shard's terms of sums over the shards."""
     In, _, H = wx.shape
+    Hin = wh.shape[0]
     dh_new, dc_new = dh_new.float(), dc_new.float()
     gates = lstm_gates(x, h, wx, wh, b)
     i_s, f_s = torch.sigmoid(gates[:, 0]), torch.sigmoid(gates[:, 1])
@@ -198,12 +211,12 @@ def lstm_cell_adjoint(x, h, c, wx, wh, b, dh_new, dc_new):
         ],
         dim=1,
     ).reshape(-1, 4 * H)  # [B, 4H]
-    wx2, wh2 = wx.float().reshape(In, 4 * H), wh.float().reshape(H, 4 * H)
+    wx2, wh2 = wx.float().reshape(In, 4 * H), wh.float().reshape(Hin, 4 * H)
     dx = torch.matmul(d_pre, wx2.t())
     dh = torch.matmul(d_pre, wh2.t())
     dc = dc_tot * f_s
     dwx = torch.matmul(x.float().t(), d_pre).view(In, 4, H)
-    dwh = torch.matmul(h.float().t(), d_pre).view(H, 4, H)
+    dwh = torch.matmul(h.float().t(), d_pre).view(Hin, 4, H)
     db = d_pre.sum(0).view(4, H)
     return dx, dh, dc, dwx, dwh, db
 
@@ -228,9 +241,11 @@ class _LSTMCell(torch.autograd.Function):
 
 
 def lstm_cell_fused(x, h, c, wx, wh, b, *, weights: Optional[CellWeights] = None):
-    """x [B, In], h/c [B, H], wx [In, 4, H], wh [H, 4, H], b [4, H], each
-    fp32 or bf16 -> (h' in h's dtype, c' in c's dtype).  Differentiable: the
-    backward is :func:`lstm_cell_adjoint`, grads in the arguments' dtypes.
+    """x [B, In], h [B, H_in], c [B, Hs], wx [In, 4, Hs], wh [H_in, 4, Hs],
+    b [4, Hs], each fp32 or bf16 -> (h' [B, Hs] in h's dtype, c' in c's
+    dtype); Hs = H_in is the whole cell, Hs < H_in a column shard of it.
+    Differentiable: the backward is :func:`lstm_cell_adjoint`, grads in the
+    arguments' dtypes.
 
     ``weights`` (from :func:`cast_weights` on ``wx, wh, b``, once per layer
     call) are what the cell computes with; ``wx, wh, b`` then only receive
@@ -242,7 +257,7 @@ def lstm_cell_fused(x, h, c, wx, wh, b, *, weights: Optional[CellWeights] = None
         raise ValueError(f"lstm_cell_fused runs on CUDA (kernel) or CPU (plain version), not on {sorted(devices)}")
     if weights is None:
         packed = None
-        if wx.dtype == wh.dtype == x.dtype and _packable(wx, x.dtype):
+        if wx.dtype == wh.dtype == x.dtype and _packable(wx, wh, x.dtype):
             packed = pack_weights(wx, wh)
         weights = CellWeights(wx.detach(), wh.detach(), b.detach(), packed)
     else:

@@ -11,15 +11,18 @@ import torch
 
 
 def lstm_gates(x, h, wx, wh, b):
-    """Pre-activation gates [B, 4, H] in fp32: x Wx + h Wh + b."""
+    """Pre-activation gates [B, 4, Hs] in fp32: x Wx + h Wh + b (h [B, H_in]
+    whole, the weights of Hs units)."""
     In, _, H = wx.shape
     gates = torch.matmul(x.float(), wx.float().reshape(In, 4 * H))
-    gates = gates + torch.matmul(h.float(), wh.float().reshape(H, 4 * H))
+    gates = gates + torch.matmul(h.float(), wh.float().reshape(wh.shape[0], 4 * H))
     return gates.view(-1, 4, H) + b.float()
 
 
 def lstm_cell_ref(x, h, c, wx, wh, b):
-    """x [B, In], h/c [B, H], wx [In, 4, H], wh [H, 4, H], b [4, H] -> (h', c')."""
+    """x [B, In], h [B, H_in], c [B, Hs], wx [In, 4, Hs], wh [H_in, 4, Hs],
+    b [4, Hs] -> (h', c') [B, Hs]: the whole cell at Hs = H_in, else the
+    column shard of Hs units that these weights hold."""
     i, f, g, o = lstm_gates(x, h, wx, wh, b).unbind(1)
     c_new = torch.sigmoid(f) * c.float() + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -154,13 +154,15 @@ class ProcessGrid:
     def _carrier(self, t: torch.Tensor) -> torch.Tensor:
         return t.cpu() if self.staged else t
 
-    def all_reduce(self, t: torch.Tensor, axis: str = "all") -> _Pending:
-        """Sum ``t`` in place over ``axis``; returns the pending handle."""
+    def all_reduce(self, t: torch.Tensor, axis: str = "all", op: str = "sum") -> _Pending:
+        """Reduce ``t`` in place over ``axis`` (``op`` "sum" or "max");
+        returns the pending handle."""
         g = self._groups[axis]
         if g is None:
             return _Pending()
         buf = self._carrier(t)
-        work = dist.all_reduce(buf, group=g, async_op=True)
+        work = dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=g,
+                               async_op=True)
         return _Pending([work], [(t, buf)] if buf is not t else [])
 
     def exchange(self, send: Optional[torch.Tensor] = None, send_to: Optional[int] = None,
@@ -210,6 +212,31 @@ class ProcessGrid:
             for o, b in zip(outs, bufs):
                 o.copy_(b)
 
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """Every coordinate's ``t`` of ``axis``, concatenated along ``dim`` in
+        coordinate order (a new tensor; ``t`` itself on an axis of size 1)."""
+        g = self._groups[axis]
+        if g is None:
+            return t
+        n = self.size(axis)
+        buf = self._carrier(t).contiguous()
+        outs = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(outs, buf, group=g)
+        return torch.cat(outs, dim=dim).to(t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """Block ``index(axis)`` of the sum of every coordinate's ``t`` over
+        ``axis``, ``t`` split along ``dim`` into ``size(axis)`` equal blocks
+        (a new tensor; ``t`` itself on an axis of size 1).  It all-reduces and
+        keeps this coordinate's block, which every backend supports."""
+        g = self._groups[axis]
+        if g is None:
+            return t
+        n, i = self.size(axis), self.index(axis)
+        buf = self._carrier(t).contiguous().clone()
+        dist.all_reduce(buf, group=g)
+        return buf.chunk(n, dim=dim)[i].contiguous().to(t.device)
+
     def broadcast(self, t: torch.Tensor, axis: str, src: int) -> None:
         """``t`` <- coordinate ``src``'s ``t``, in place."""
         g = self._groups[axis]
@@ -253,7 +280,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     shape = "(2, 16, 16) pod x data x model" if multi_pod else "(16, 16) data x model"
     raise NotImplementedError(
         f"the TPU v5e production mesh {shape} is not ported: the port's grids are the cards of one host "
-        "(make_grid / make_test_mesh); multi-host grids are ROADMAP queue 1 item 4")
+        "(make_grid / make_test_mesh); multi-host grids are ROADMAP queue 1 item 4(f)")
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,8 @@ on a grid of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --arch seq2seq-rnn --smoke --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
         --num-layers 4 --device cpu --strategy hybrid --pipeline --mesh test --micro-batches 2 --batch 16
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
+        --device cpu --strategy hybrid_opt --mesh test --grid 2x2 --batch 16
 
 Weights are random, from the port's initializer and ``--seed``; batches come
 from ``SyntheticMTTask`` through ``MTBatchIterator``, as in
@@ -12,13 +14,16 @@ from ``SyntheticMTTask`` through ``MTBatchIterator``, as in
 and ``step N  loss ...  tok/s ...`` lines (rank 0 only on a grid).
 
 The JAX launcher's multi-device flags: ``--strategy``, ``--mesh`` (``none``;
-``test``, the 2 x 4 grid of ``make_test_mesh``, one process per rank under
-``torchrun``; ``pod`` and ``multipod``, the TPU meshes, raise by name),
-``--pipeline`` (with ``--mesh none`` on the trivial 1 x 1 grid, as the JAX
-launcher does), ``--overlap``, ``--schedule``, ``--virtual-stages`` and
-``--bucket-bytes``; the layouts not ported yet raise by name.
-``--ckpt-dir`` writes the trained parameters at the end (rank 0, after
-gathering each stage's layers).
+``test``, the 2 x 4 grid of ``make_test_mesh`` or the ``--grid DxM`` one,
+one process per rank under ``torchrun``; ``pod`` and ``multipod``, the TPU
+meshes, raise by name), ``--pipeline`` (with ``--mesh none`` on the trivial
+1 x 1 grid, as the JAX launcher does), ``--overlap``, ``--schedule``,
+``--virtual-stages`` and ``--bucket-bytes``.  Every strategy runs: MODEL or
+HYBRID without ``--pipeline`` on a grid is the tensor-parallel layout,
+``hybrid_opt`` adds the vocab-sharded head and FSDP (``--mesh test --grid
+1x1`` runs it on the trivial grid in one process).  ``--ckpt-dir`` writes the trained parameters at
+the end (rank 0, after gathering each stage's layers and each rank's
+blocks).
 """
 from __future__ import annotations
 
@@ -37,14 +42,15 @@ from repro_torch.optim import adam
 from repro_torch.train import Trainer
 
 
-def make_mesh(name: str, pipeline: bool, device):
-    """The grid ``--mesh`` names (None for ``none`` without ``--pipeline``)."""
+def make_mesh(name: str, pipeline: bool, device, shape=None):
+    """The grid ``--mesh`` names (``test``: ``shape`` or 2 x 4), or None
+    for ``none`` without ``--pipeline``."""
     from repro_torch.launch import mesh as mesh_lib
 
     if name in ("pod", "multipod"):
         mesh_lib.make_production_mesh(multi_pod=name == "multipod")
     if name == "test":
-        return mesh_lib.make_test_mesh(device=device)
+        return mesh_lib.make_test_mesh(*(shape or (2, 4)), device=device)
     if pipeline:
         # a trivial (1, 1) grid so --pipeline exercises the real wavefront
         # code path (one stage) in one process
@@ -52,11 +58,21 @@ def make_mesh(name: str, pipeline: bool, device):
     return None
 
 
+def _grid_shape(text: str) -> tuple:
+    try:
+        d, m = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--grid wants DxM (e.g. 2x2), got {text!r}")
+    return d, m
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="seq2seq-rnn")
     ap.add_argument("--strategy", default="single", choices=[s.value for s in Strategy])
     ap.add_argument("--mesh", choices=("none", "pod", "multipod", "test"), default="none")
+    ap.add_argument("--grid", type=_grid_shape, default=None,
+                    help="with --mesh test: the data x model shape of the grid, DxM (default 2x4)")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="override the config's encoder/decoder depth (the pipeline needs it divisible by the "
@@ -90,7 +106,9 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
-    grid = make_mesh(args.mesh, args.pipeline, args.device)
+    if args.grid is not None and args.mesh != "test":
+        raise SystemExit("--grid sets the shape of --mesh test")
+    grid = make_mesh(args.mesh, args.pipeline, args.device, args.grid)
     try:
         plan = ExecutionPlan(
             strategy=Strategy(args.strategy), mesh=grid, micro_batches=args.micro_batches,
@@ -126,7 +144,7 @@ def main(argv=None):
         )
         trainer.run(args.steps, log_every=max(args.steps // 4, 1))
         if args.ckpt_dir:
-            whole = trainer.params()  # every rank: each stage's layers from their owner
+            whole = trainer.params()  # every rank: each stage's layers from their owner, each leaf's blocks
             if rank0:
                 say("checkpoint:", save_checkpoint(args.ckpt_dir, args.steps, whole))
         return trainer

@@ -69,6 +69,38 @@ def init_seq2seq(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     }
 
 
+def param_specs(num_layers: int) -> dict:
+    """The logical spec tree of :func:`init_seq2seq`'s parameters at
+    ``num_layers`` layers a side (each leaf a tuple of logical dim names,
+    None for a dim no rule shards), as ``repro/models/seq2seq.py:51-66`` and
+    ``repro/models/lstm.py:22-32`` return it beside the parameters."""
+    cell = {"wx": ("embed", None, "qdim"), "wh": ("embed", None, "qdim"), "b": (None, "qdim")}
+    return {
+        "src_emb": {"table": ("vocab", "embed")},
+        "tgt_emb": {"table": ("vocab", "embed")},
+        "encoder": [dict(cell) for _ in range(num_layers)],
+        "decoder": [dict(cell) for _ in range(num_layers)],
+        "head": {"w_alpha": ("embed", "embed"), "w_c": ("ff", "embed"), "f_c": ("embed", "vocab")},
+    }
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The whole shape of every parameter of :func:`init_seq2seq`, in its tree."""
+    h, e, v = cfg.d_model, cfg.emb_size, cfg.vocab_size
+    dec_in = e + (h if cfg.input_feeding else 0)
+
+    def cell(in_dim):
+        return {"wx": (in_dim, 4, h), "wh": (h, 4, h), "b": (4, h)}
+
+    return {
+        "src_emb": {"table": (v, e)},
+        "tgt_emb": {"table": (v, e)},
+        "encoder": [cell(e if li == 0 else h) for li in range(cfg.num_layers)],
+        "decoder": [cell(dec_in if li == 0 else h) for li in range(cfg.num_layers)],
+        "head": {"w_alpha": (h, h), "w_c": (2 * h, h), "f_c": (h, v)},
+    }
+
+
 def cast_params(params: dict, cfg: ModelConfig) -> dict:
     """The parameters as the serving path reads them: every weight cast once
     to the compute dtype, except the output projection ``f_c``, which eq. 5
@@ -131,6 +163,7 @@ def forward_no_input_feeding(
     phase_boundary: Optional[Callable] = None,
     backbone: Optional[Callable] = None,
     total: Optional[Callable] = None,
+    sharding=None,
 ):
     """HybridNMT forward -> (mean loss, {"logits", "denom"}).
     ``stage_kernel`` selects both the LSTM cells and the head's eq. 1-4
@@ -145,18 +178,29 @@ def forward_no_input_feeding(
     labels to the same rows; ``total`` maps this rank's token count to the
     grid's, so the loss is this rank's share of the single-process mean.  A
     rank with no head rows (a MODEL stage below the top) returns a zero loss
-    that still reaches its backbone."""
+    that still reaches its backbone.  ``sharding`` (a
+    ``core.strategy.Sharding``: the tensor-parallel layouts) holds the
+    parameters as this rank's blocks: the embeddings are looked up in the
+    rank's vocab block, the head's weights gathered for eq. 1-4, and with a
+    vocab-sharded ``f_c`` eq. 5 and the loss run vocab-parallel."""
     dt = resolve_dtype(cfg.dtype)
 
     def run(ps, xs, gen):
         return lstm.run_stacked_lstm(ps, xs, dropout_p=cfg.dropout, generator=gen, stage_kernel=stage_kernel)[0]
 
     run = backbone or run
-    src_e = _embed(params["src_emb"]["table"], batch.src, dt)
-    tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
+    if sharding is None:
+        src_e = _embed(params["src_emb"]["table"], batch.src, dt)
+        tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
+    else:
+        src_e = sharding.embed("src_emb", params["src_emb"]["table"], batch.src, dt)
+        tgt_e = sharding.embed("tgt_emb", params["tgt_emb"]["table"], batch.tgt_in, dt)
     # ---- phase 1: model-parallel backbone (all hidden states) ----------
-    S = run(params["encoder"], src_e, generator)  # [B, M, h]
-    H = run(params["decoder"], tgt_e, generator)  # [B, N, h]
+    enc, dec = params["encoder"], params["decoder"]
+    if sharding is not None:  # the column shards, gathered over data where FSDP shards them
+        enc, dec = sharding.layers("encoder", enc), sharding.layers("decoder", dec)
+    S = run(enc, src_e, generator)  # [B, M, h]
+    H = run(dec, tgt_e, generator)  # [B, N, h]
     # ---- reshard boundary (the paper's hybrid hand-off) ----------------
     src_mask, tgt_out, tgt_mask = batch.src_mask, batch.tgt_out, batch.tgt_mask
     if phase_boundary is not None:
@@ -167,8 +211,12 @@ def forward_no_input_feeding(
         denom = torch.clamp(total(count) if total is not None else count, min=1.0)
         return (S.sum() + H.sum()).float() * 0.0, {"logits": None, "denom": denom}
     # ---- phase 2: data-parallel attention-softmax ----------------------
-    _, logits = attention_softmax_head(params["head"], S, H, src_mask, stage_kernel=stage_kernel)
-    loss, denom = softmax_cross_entropy(logits, tgt_out, tgt_mask, total=total)
+    head = params["head"] if sharding is None else sharding.head(params["head"])
+    _, logits = attention_softmax_head(head, S, H, src_mask, stage_kernel=stage_kernel)
+    if sharding is not None and sharding.vocab_parallel:
+        loss, denom = sharding.cross_entropy(logits, tgt_out, tgt_mask, total=total)
+    else:
+        loss, denom = softmax_cross_entropy(logits, tgt_out, tgt_mask, total=total)
     return loss, {"logits": logits, "denom": denom}
 
 

@@ -8,7 +8,11 @@ optimizer update.  On a process grid every rank runs the step on the same
 global batch: it computes on its rows (and its pipeline stage's layers), and
 the grads of the leaves it owns are all-reduced over their axes (DATA: every
 grad over the grid; HYBRID: the head over the grid, the backbone and
-embeddings over ``data``; MODEL: all over ``data``).  Mixed precision enters
+embeddings over ``data``; MODEL: all over ``data``).  On the tensor-parallel
+layouts the params, grads and optimizer moments are this rank's blocks
+(``ExecutionPlan.shard_params``): a grad is summed over the axes that do not
+shard its leaf, an FSDP leaf's grad arrives reduce-scattered over ``data``,
+and Adam steps on the blocks.  Mixed precision enters
 through the plan's ``compute_dtype``: the weights stay fp32 masters, the
 model casts them at each use, and their grads come back fp32.  fp16 adds
 dynamic loss scaling held in the train state: an overflowed step leaves
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import strategy as stg
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.models import seq2seq as s2s
 from repro_torch.models.common import resolve_device, tree_leaves, tree_map
@@ -74,13 +79,13 @@ class _GradSync:
     mode (at once, one microbatch late, or by buckets), so the sums are the
     same bits whichever mode starts them.  Without a grid nothing is called."""
 
-    def __init__(self, plan: ExecutionPlan):
-        self.plan, self.grid = plan, plan.mesh
+    def __init__(self, plan: ExecutionPlan, cfg: ModelConfig):
+        self.plan, self.grid, self.cfg = plan, plan.mesh, cfg
         self.roles = None
 
     def bind(self, params) -> None:
         if self.roles is None and self.grid is not None:
-            self.roles = self.plan.leaf_roles(params)
+            self.roles = self.plan.leaf_roles(params, self.cfg)
             m = self.grid.index(self.plan.model_axis)
             self.mine = [r.axis is not None and r.owner in (None, m) for r in self.roles]
 
@@ -100,18 +105,24 @@ class _GradSync:
         return loss
 
     def global_norm(self, grads) -> torch.Tensor:
-        """sqrt of the sum of squares of every leaf, each counted once: the
-        squares of the leaves a stage owns summed over the ``model`` axis
-        (the others' zeros), the replicated leaves' taken as they are."""
+        """sqrt of the sum of squares of every leaf, each element counted
+        once: the squares of the leaves a stage owns summed over the
+        ``model`` axis (the others' zeros), of a sharded leaf's blocks over
+        the axes that shard it, the replicated leaves' taken as they are."""
         sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(grads)]
-        axis = self.plan.model_axis
-        if self.grid is not None and self.grid.size(axis) > 1:
-            owned = [i for i, r in enumerate(self.roles) if r.owner is not None]
-            if owned:
-                vec = torch.stack([sq[i] for i in owned])
-                self.grid.all_reduce(vec, axis).wait()
-                for j, i in enumerate(owned):
-                    sq[i] = vec[j]
+        if self.grid is not None:
+            groups = {}
+            for i, r in enumerate(self.roles):
+                axes = set(r.shard) | ({self.plan.model_axis} if r.owner is not None else set())
+                axis = stg.axis_name(tuple(a for a in axes if self.grid.size(a) > 1))
+                if axis is not None:
+                    groups.setdefault(axis, []).append(i)
+            for axis in ("model", "data", "all"):  # one order on every rank
+                if axis in groups:
+                    vec = torch.stack([sq[i] for i in groups[axis]])
+                    self.grid.all_reduce(vec, axis).wait()
+                    for j, i in enumerate(groups[axis]):
+                        sq[i] = vec[j]
         return torch.sqrt(sum(sq))
 
     def all_finite(self, grads) -> bool:
@@ -140,8 +151,13 @@ def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
         cfg = dataclasses.replace(cfg, dtype=resolved)
     if cfg.input_feeding and plan.mesh is not None and plan.mesh.size(plan.model_axis) > 1:
         raise NotImplementedError(
-            "input feeding on a model axis above 1: its decoder cannot run as the wavefront (the paper's §3.2) "
-            "and the tensor-parallel backbone is not ported (ROADMAP queue 1 item 4)")
+            "input feeding on a model axis above 1: its decoder cannot run as the wavefront (the paper's §3.2), "
+            "and on the tensor-parallel backbone the head must run inside the decoder's recurrence "
+            "(ROADMAP queue 1 item 4(e))")
+    if cfg.input_feeding and plan.strategy == stg.Strategy.HYBRID_OPT and plan.mesh is not None:
+        raise NotImplementedError("input feeding under hybrid_opt: the vocab-sharded head inside the decoder's "
+                                  "recurrence (ROADMAP queue 1 item 4(e))")
+    sharding = plan.sharding(cfg)
     backbone = None if cfg.input_feeding else plan.backbone(cfg)
     pb = plan.phase_boundary()
     axis = plan.loss_axis()
@@ -165,6 +181,8 @@ def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
             kw["phase_boundary"] = pb
             if backbone is not None:
                 kw["backbone"] = backbone
+            if sharding is not None:
+                kw["sharding"] = sharding
         loss, extras = s2s.forward(params, cfg, b, **kw)
         return loss, {"denom": extras["denom"]}
 
@@ -207,7 +225,7 @@ def make_grad_fn(cfg: ModelConfig, plan: ExecutionPlan):
     """
     loss_fn = make_loss_fn(cfg, plan)
     accum = plan.accum_steps
-    sync = _GradSync(plan)
+    sync = _GradSync(plan, cfg)
 
     def grads_of(params, batch, generator=None, scale=None):
         sync.bind(params)
@@ -318,7 +336,10 @@ class Trainer:
     """Minimal host loop: steps on ``device`` (the card by default; on a grid,
     the grid's device) from an iterator of numpy batches, with dropout drawn
     from a ``torch.Generator`` seeded from ``seed``.  On a grid every rank
-    runs it on the same batches and only rank 0 logs."""
+    runs it on the same batches and only rank 0 logs.  ``params`` (or the
+    seed's) are the whole tree; each rank keeps its blocks of it
+    (``ExecutionPlan.shard_params``), and its optimizer moments are those
+    blocks' own."""
 
     def __init__(self, cfg: ModelConfig, optimizer, train_iter, *, plan: Optional[ExecutionPlan] = None,
                  params=None, clip_norm: float = 5.0, seed: int = 0, device="cuda"):
@@ -329,8 +350,9 @@ class Trainer:
             params = s2s.init_seq2seq(seed, cfg, device=self.device)
         else:
             params = tree_map(lambda t: t.to(self.device), params)
-        self.plan = plan
+        self.plan, self.cfg = plan, cfg
         self.step_fn = make_train_step(cfg, optimizer, plan=plan, clip_norm=clip_norm)
+        params = plan.shard_params(params, cfg)
         self.state = init_train_state(params, optimizer, plan=plan, cfg=cfg)
         self.train_iter = train_iter
         self.lr_scale = 1.0
@@ -360,6 +382,7 @@ class Trainer:
         return self.state
 
     def params(self):
-        """The whole parameter tree, each leaf from the rank that owns it
-        (a collective: every rank of a grid calls it)."""
-        return self.plan.gather_params(self.state.params)
+        """The whole parameter tree, each leaf gathered from the ranks that
+        hold its blocks or from the rank that owns it (a collective: every
+        rank of a grid calls it)."""
+        return self.plan.gather_params(self.state.params, self.cfg)

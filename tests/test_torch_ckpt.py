@@ -32,6 +32,7 @@ from repro_torch.models import seq2seq as s2s  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
+from torch_hybrid_workers import launch_train as launch_train_rank  # noqa: E402
 from torch_hybrid_workers import small_config, train_and_save  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
@@ -116,3 +117,27 @@ def test_rank0_writes_every_stages_layers(tmp_path):
     restored = restore_checkpoint(str(tmp_path), 2, params)
     for a, b in zip(tree_leaves(restored), tree_leaves(trainer.state.params)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+
+
+def test_launcher_hybrid_opt_on_a_2x2_grid_writes_the_gathered_params(tmp_path):
+    """``launch/train.py --strategy hybrid_opt --mesh test --grid 2x2
+    --ckpt-dir``: each rank trains on its blocks, rank 0 writes the tree
+    gathered whole, and JAX's reader restores exactly that tree."""
+    argv = ["--arch", "seq2seq-rnn", "--smoke", "--device", "cpu", "--steps", "2", "--batch", "8",
+            "--strategy", "hybrid_opt", "--mesh", "test", "--grid", "2x2", "--ckpt-dir", str(tmp_path)]
+    gathered, *_ = spawn_grid(launch_train_rank, 2, 2, args=(argv,), timeout_s=180)
+    assert jax_latest_step(str(tmp_path)) == 2
+    restored = bridge.params_from_jax(jax.device_get(jax_restore(str(tmp_path), 2, _jax_tree())), device="cpu")
+    like = s2s.init_seq2seq(0, get_config("seq2seq-rnn", smoke=True), device="cpu")  # the launcher's leaf order
+
+    def in_order(tree, ref):
+        if isinstance(ref, dict):
+            return {k: in_order(tree[k], ref[k]) for k in ref}
+        if isinstance(ref, list):
+            return [in_order(t, r) for t, r in zip(tree, ref)]
+        return tree
+
+    leaves = tree_leaves(in_order(restored, like))
+    assert [tuple(a.shape) for a in leaves] == [tuple(a.shape) for a in tree_leaves(like)]
+    for a, b in zip(leaves, gathered):
+        assert np.array_equal(a.numpy(), b)

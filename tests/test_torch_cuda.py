@@ -122,6 +122,33 @@ def test_lstm_kernel_path_counters(cuda):
         assert tuple(a - b for a, b in zip(after, before)) == want, f"{s} {dts[3]}: expected the {path} kernel"
 
 
+@pytest.mark.parametrize("feed,path", [("model_bf16w", "mma"), ("float32", "fma")])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_lstm_column_shard_is_the_square_kernels_block(cuda, feed, path, parts):
+    """The tensor-parallel backbone's column-shard cell (h [B, H] whole, c
+    and the weights of H/parts units) at the model's widths: each shard
+    against the plain version at its feed's tolerance, on the feed's kernel,
+    and bit for bit the square kernel's column block on the same inputs."""
+    dts, tol = FEEDS[feed]
+    fn = lstm_ops.lstm_cell_fused
+    for s in LSTM_SHAPES[6:8]:
+        x, h, c, wx, wh, b = _lstm_inputs(s, dts)
+        whole = fn(x, h, c, wx, wh, b)
+        Hs = s["H"] // parts
+        for r in range(parts):
+            cols = slice(r * Hs, (r + 1) * Hs)
+            args = (x, h, c[:, cols].contiguous(), wx[..., cols].contiguous(), wh[..., cols].contiguous(),
+                    b[:, cols].contiguous())
+            before = getattr(fn, f"{path}_launches")
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert getattr(fn, f"{path}_launches") == before + 1, f"{s} shard {r}: expected the {path} kernel"
+            assert torch.equal(got[0], whole[0][:, cols]) and torch.equal(got[1], whole[1][:, cols]), (s, r)
+            for g, w in zip(got, lstm_cell_ref(*args)):
+                np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(), **tol,
+                                           err_msg=f"{s} shard {r} {feed}")
+
+
 def test_lstm_backward_through_kernel_matches_plain(cuda):
     """fp32 grads of all six inputs through the kernel's Function (the
     analytic adjoint) equal autograd through the plain version."""

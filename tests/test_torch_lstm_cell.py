@@ -413,3 +413,99 @@ def test_cast_weights():
     assert w16.packed is None
     for got, master in zip(w16[:3], (wx, wh, b)):
         assert got.dtype == torch.float32 and torch.equal(got, master.bfloat16().float())
+
+
+# ---------------------------------------------------------------------------
+# the column shard: the TPU kernel's own column tile, as the tensor-parallel
+# backbone runs it
+# ---------------------------------------------------------------------------
+
+SHARD_SHAPE = dict(B=8, In=24, H=32)
+
+
+def _shard(arrs, r, n):
+    """Shard r of n of the cell's inputs: h whole, c and the weights' units
+    [r*Hs, (r+1)*Hs)."""
+    x, h, c, wx, wh, b = arrs
+    Hs = h.shape[1] // n
+    cols = slice(r * Hs, (r + 1) * Hs)
+    return [x, h, c[:, cols], wx[..., cols], wh[..., cols], b[:, cols]]
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_column_shard_matches_jax_column_tiles(parts):
+    """The plain column-shard cell and its adjoint at Hs = H/2 and H/4 against
+    JAX's Pallas cell in interpret mode run in column tiles of Hs
+    (``block_h=Hs``): each shard's h', c' and its weights' grads are the
+    tiles' columns, and the shards' dx and dh summed are the whole cell's."""
+    s = SHARD_SHAPE
+    arrs = _cell_inputs(s, seed=5)
+    wh_, wc_ = _loss_weights(s, seed=6)
+    Hs = s["H"] // parts
+
+    def jloss(*a):
+        h, c = jax_fused(*a, block_h=Hs, interpret=True)
+        return jnp.sum(h * wh_) + jnp.sum(c * wc_), (h, c)
+
+    (_, (jh, jc)), jgrads = jax.value_and_grad(jloss, argnums=tuple(range(6)), has_aux=True)(
+        *[jnp.asarray(a) for a in arrs])
+    dx = dh = 0.0
+    for r in range(parts):
+        cols = slice(r * Hs, (r + 1) * Hs)
+        ins = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_() for a in _shard(arrs, r, parts)]
+        h, c = ops.lstm_cell_fused(*ins)
+        assert h.shape == c.shape == (s["B"], Hs)
+        _close(h.detach(), np.asarray(jh)[:, cols], TOL_TIGHT["float32"], f"h' shard {r}")
+        _close(c.detach(), np.asarray(jc)[:, cols], TOL_TIGHT["float32"], f"c' shard {r}")
+        g = torch.autograd.grad((h * torch.from_numpy(wh_[:, cols])).sum() + (c * torch.from_numpy(wc_[:, cols])).sum(),
+                                ins)
+        for name, got, want in zip(NAMES[2:], g[2:], jgrads[2:]):
+            _close(got, np.asarray(want)[..., cols], GRAD_TOL["float32"], f"d{name} shard {r}")
+        dx, dh = dx + g[0], dh + g[1]
+    _close(dx, jgrads[0], GRAD_TOL["float32"], "dx summed over the shards")
+    _close(dh, jgrads[1], GRAD_TOL["float32"], "dh summed over the shards")
+
+
+def test_column_shard_adjoint_shapes_and_partial_dh():
+    """``lstm_cell_adjoint`` on a shard: dh is [B, H_in] and the shards' dh
+    sum to the whole cell's adjoint dh; dwx and dwh are the shard's columns."""
+    s = SHARD_SHAPE
+    arrs = [torch.from_numpy(a) for a in _cell_inputs(s, seed=7)]
+    dh_new, dc_new = (torch.from_numpy(w) for w in _loss_weights(s, seed=8))
+    whole = ops.lstm_cell_adjoint(*arrs, dh_new, dc_new)
+    Hs = s["H"] // 2
+    dh = 0.0
+    for r in range(2):
+        cols = slice(r * Hs, (r + 1) * Hs)
+        x, h, c, wx, wh, b = _shard(arrs, r, 2)
+        dx_, dh_, dc_, dwx, dwh, db = ops.lstm_cell_adjoint(x, h, c, wx, wh, b, dh_new[:, cols], dc_new[:, cols])
+        assert dh_.shape == (s["B"], s["H"]) and dwh.shape == (s["H"], 4, Hs)
+        for got, want in ((dc_, whole[2][:, cols]), (dwx, whole[3][..., cols]), (dwh, whole[4][..., cols]),
+                          (db, whole[5][:, cols])):
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+        dh = dh + dh_
+    torch.testing.assert_close(dh, whole[1], atol=1e-5, rtol=1e-5)
+
+
+def test_pack_weights_of_a_column_shard_are_the_whole_cells_tiles():
+    """The packed copy of a column shard is the whole cell's packed tiles of
+    its units, so the kernel walks the same depth on the same weights."""
+    In, H = 40, 64
+    rng = np.random.default_rng(2)
+    wx = torch.from_numpy(rng.normal(size=(In, 4, H)).astype(np.float32))
+    wh = torch.from_numpy(rng.normal(size=(H, 4, H)).astype(np.float32))
+    whole = ops.pack_weights(wx, wh)
+    for parts in (2, 4):
+        Hs, T = H // parts, H // parts // 16
+        for r in range(parts):
+            cols = slice(r * Hs, (r + 1) * Hs)
+            shard = ops.pack_weights(wx[..., cols].contiguous(), wh[..., cols].contiguous())
+            assert torch.equal(shard, whole[r * T:(r + 1) * T]), (parts, r)
+
+
+def test_wrapper_rejects_a_mismatched_shard():
+    x, h, c, wx, wh, b = [torch.from_numpy(a) for a in _cell_inputs(SHARD_SHAPE)]
+    with pytest.raises(ValueError, match="wh is"):
+        ops.lstm_cell_fused(x, h, c[:, :16], wx[..., :16], wh[:16, :, :16], b[:, :16])
+    with pytest.raises(ValueError, match="b is"):
+        ops.lstm_cell_fused(x, h, c[:, :16], wx[..., :16], wh[..., :16], b)

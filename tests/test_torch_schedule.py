@@ -6,9 +6,10 @@ Schedules: every kind, S in {1, 3, 5}, NS in {1, 2, 4}, k in {1, 2, 4} and
 chunks 1-2 where legal: the work tables, ``summary()``, the liveness
 accounting and the executor contract (``bwd_group_size``/``bwd_group_starts``)
 equal exactly.  Cost models: equal on ``seq2seq-rnn`` and its smoke config.
-Plan: ``grad_buckets`` equals the JAX plan's on the bridged tree, and every
-validator raises where JAX's does (the layouts the port does not have raise
-``NotImplementedError`` instead, by name).
+Plan: ``grad_buckets`` equals the JAX plan's on the bridged tree, every
+validator raises where JAX's does, and every layout JAX accepts builds a
+plan (input feeding on a model axis above 1, which the port does not run
+yet, raises ``NotImplementedError`` by name).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.core import hybrid, schedule  # noqa: E402
 from repro_torch.core import strategy as stg  # noqa: E402
 from repro_torch.core.plan import ExecutionPlan  # noqa: E402
 from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.train.trainer import make_loss_fn  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -184,24 +186,29 @@ def test_validators_raise_where_jax_does(kw):
 
 
 def test_layouts_not_ported_raise_by_name():
-    """Plans JAX accepts and the port cannot run yet."""
+    """Plans JAX accepts: the port takes every one of them now (the
+    interleaved ring, the tensor-parallel backbone, HYBRID_OPT), and what it
+    still cannot run, input feeding on a model axis above 1, raises by
+    name."""
     cases = [
-        (dict(schedule="interleaved", virtual_stages=2), "interleaved ring executor"),
-        (dict(strategy="hybrid", mesh=(1, 2)), "tensor-parallel backbone"),
-        (dict(strategy="model", mesh=(2, 4)), "tensor-parallel backbone"),
-        (dict(strategy="hybrid_opt", mesh=(2, 1)), "hybrid_opt"),
+        (dict(schedule="interleaved", virtual_stages=2), False),
+        (dict(strategy="hybrid", mesh=(1, 2)), True),
+        (dict(strategy="model", mesh=(2, 4)), True),
+        (dict(strategy="hybrid_opt", mesh=(2, 1)), True),
     ]
-    for kw, name in cases:
+    for kw, tensor_parallel in cases:
         jkw, pkw = dict(kw), dict(kw)
         if "mesh" in kw:
             jkw["mesh"], pkw["mesh"] = _jax_mesh(), _Grid(*kw["mesh"])
         JaxPlan(**{"strategy": "single", **jkw})
-        with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP queue 1 item 4"):
-            ExecutionPlan(**pkw)
-    # the same grids with the pipeline, and a model axis of 1 without it, are ported
-    ExecutionPlan(strategy="hybrid", mesh=_Grid(1, 2), use_pipeline=True)
-    ExecutionPlan(strategy="model", mesh=_Grid(2, 4), use_pipeline=True, micro_batches=4)
-    ExecutionPlan(strategy="hybrid", mesh=_Grid(2, 1), micro_batches=2, overlap=True)
+        assert ExecutionPlan(**pkw).tensor_parallel == tensor_parallel
+    # the same grids with the pipeline, and a model axis of 1 without it, are not tensor-parallel
+    assert ExecutionPlan(strategy="hybrid", mesh=_Grid(1, 2), use_pipeline=True).pipelined
+    assert ExecutionPlan(strategy="model", mesh=_Grid(2, 4), use_pipeline=True, micro_batches=4).pipelined
+    assert not ExecutionPlan(strategy="hybrid", mesh=_Grid(2, 1), micro_batches=2, overlap=True).tensor_parallel
+    cfg = dataclasses.replace(get_config("seq2seq-rnn", smoke=True), input_feeding=True)
+    with pytest.raises(NotImplementedError, match=r"input feeding on a model axis above 1.*ROADMAP queue 1 item 4\(e\)"):
+        make_loss_fn(cfg, ExecutionPlan(strategy="hybrid", mesh=_Grid(1, 2)))
 
 
 @pytest.mark.parametrize("strategy,grid,pipeline", [

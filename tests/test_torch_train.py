@@ -362,12 +362,12 @@ def test_perplexity_matches_jax():
 
 def test_plan_rejects_unported_fields():
     """The JAX plan's multi-device fields are ported (``tests/test_torch_hybrid.py``
-    drives them); the layouts still missing raise by name."""
+    and ``tests/test_torch_layouts.py`` drive them), ``virtual_stages`` with
+    the interleaved schedule included; bad values raise."""
     for kw in (dict(strategy="hybrid"), dict(use_pipeline=True), dict(overlap=True), dict(schedule="1f1b"),
-               dict(overlap=True, bucket_bytes=1024), dict(mesh=None)):
+               dict(overlap=True, bucket_bytes=1024), dict(mesh=None), dict(strategy="hybrid_opt"),
+               dict(schedule="interleaved", virtual_stages=2)):
         ExecutionPlan(**kw)
-    with pytest.raises(NotImplementedError, match="interleaved ring executor.*ROADMAP queue 1 item 4"):
-        ExecutionPlan(schedule="interleaved", virtual_stages=2)
     with pytest.raises(ValueError, match="not a valid Strategy"):
         ExecutionPlan(strategy="pipeline")
     with pytest.raises(ValueError, match="stage_kernel"):
@@ -386,5 +386,6 @@ def test_launcher_prints_config_and_step_lines(capsys):
     for flags in (["--mesh", "pod"], ["--mesh", "multipod"]):
         with pytest.raises(NotImplementedError, match="production mesh .* not ported"):
             launch_train.main(["--smoke", "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="interleaved ring executor"):
-        launch_train.main(["--smoke", "--device", "cpu", "--schedule", "interleaved", "--virtual-stages", "2"])
+    launch_train.main(["--smoke", "--device", "cpu", "--steps", "1", "--batch", "4", "--strategy", "hybrid",
+                       "--pipeline", "--schedule", "interleaved", "--virtual-stages", "2"])
+    assert "pipeline=True" in capsys.readouterr().out  # the ring, two layer chunks of the one stage

@@ -24,17 +24,38 @@ def small_config(dropout: float = 0.0):
     return dataclasses.replace(get_config("seq2seq-rnn", smoke=True), num_layers=4, dtype="float32", dropout=dropout)
 
 
+WIDE = dict(num_layers=2, d_model=1024, emb_size=1024, vocab_size=2048)  # h at the FSDP floor
+
+
+def wide_config(dropout: float = 0.0):
+    """Two layers a side at h = emb = 1024 (the FSDP floor: the smoke widths
+    shard nothing over ``data``), vocab 2048, fp32."""
+    return dataclasses.replace(get_config("seq2seq-rnn", smoke=True), **WIDE, dtype="float32", dropout=dropout)
+
+
+CONFIGS = {"small": small_config, "wide": wide_config}
+
+
+def _stored(plan, tree) -> dict:
+    """{dotted path: shape} of a tree this rank stores."""
+    from repro_torch.core.plan import _paths
+
+    return {".".join(map(str, path)): tuple(t.shape) for path, t in _paths(tree)}
+
+
 def _generator(seed: int) -> torch.Generator:
     g = torch.Generator()
     g.manual_seed(seed)
     return g
 
 
-def run_cases(grid, cases: dict, params_np: dict, batch_np: dict, seed: int) -> dict:
+def run_cases(grid, cases: dict, params_np: dict, batch_np: dict, seed: int, config: str = "small") -> dict:
     """For each case ({"grid": (D, M), "dropout": p, "step": bool, plan
     keywords...}) on a grid of this world's size: the step's loss, token
-    count and every grad leaf (each from its owner), and with "step" the
-    grad norm and params after one Adam step; returned by rank 0.  Grids of
+    count and every grad leaf (gathered whole), and with "step" the grad
+    norm and params after one Adam step; returned by rank 0.  With "step"
+    every rank also returns the shapes of the params and Adam moments it
+    stores.  The model is ``CONFIGS[config]``.  Grids of
     other shapes over the same ranks are built on the spawned one's
     process group."""
     grids = {grid.shape: grid}
@@ -47,22 +68,24 @@ def run_cases(grid, cases: dict, params_np: dict, batch_np: dict, seed: int) -> 
         if shape not in grids:
             grids[shape] = ProcessGrid(*shape, device="cpu", timeout_s=grid.timeout.total_seconds())
         g = grids[shape]
-        cfg = small_config(case.pop("dropout", 0.0))
+        cfg = CONFIGS[config](case.pop("dropout", 0.0))
         with_step = case.pop("step", False)
-        params = bridge.params_from_jax(params_np, device="cpu")
         batch = batch_to_device(batch_np, "cpu")
         plan = ExecutionPlan(mesh=g, **case)
+        params = plan.shard_params(bridge.params_from_jax(params_np, device="cpu"), cfg)  # this rank's blocks
         loss, extras, grads = make_grad_fn(cfg, plan)(params, batch, _generator(seed))
         res = {"loss": float(loss), "denom": float(extras["denom"]),
-               "grads": [x.numpy() for x in tree_leaves(plan.gather_params(grads))]}
+               "grads": [x.numpy() for x in tree_leaves(plan.gather_params(grads, cfg))]}
         if with_step:
             opt = adam(lr=1e-2)
             step = make_train_step(cfg, opt, plan=plan, clip_norm=0.05)
             state, metrics = step(init_train_state(params, opt, plan=plan, cfg=cfg), batch, 1.0, _generator(seed))
             res["grad_norm"] = float(metrics["grad_norm"])
-            res["params"] = [p.numpy() for p in tree_leaves(plan.gather_params(state.params))]
-        out[name] = res
-    return out if grid.rank == 0 else None
+            res["params"] = [p.numpy() for p in tree_leaves(plan.gather_params(state.params, cfg))]
+            res["stored"] = {"params": _stored(plan, state.params), "m": _stored(plan, state.opt_state.m),
+                             "v": _stored(plan, state.opt_state.v)}
+        out[name] = res if grid.rank == 0 else {k: v for k, v in res.items() if k == "stored"}
+    return out
 
 
 def fail_on_rank(grid, rank: int):
@@ -88,3 +111,23 @@ def train_and_save(grid, ckpt_dir: str, params_np: dict, steps: int) -> None:
     whole = trainer.params()
     if grid.rank == 0:
         save_checkpoint(ckpt_dir, steps, whole)
+
+
+def run_case_groups(grid, groups: list) -> dict:
+    """``run_cases`` for each (cases, params_np, batch_np, seed, config) of
+    ``groups`` in one spawn; the merged results."""
+    out = {}
+    for cases, params_np, batch_np, seed, config in groups:
+        out.update(run_cases(grid, cases, params_np, batch_np, seed, config))
+    return out
+
+
+def launch_train(grid, argv: list) -> list:
+    """``repro_torch.launch.train.main(argv)`` on this rank (its grid built
+    on the spawned ranks' process group); rank 0 returns the trained
+    parameters gathered whole, as numpy."""
+    from repro_torch.launch import train
+
+    trainer = train.main(argv)
+    whole = trainer.params()
+    return [p.numpy() for p in tree_leaves(whole)] if grid.rank == 0 else None
