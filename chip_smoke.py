@@ -13,14 +13,18 @@ Phases, each printed as it runs; any failure exits nonzero:
 3. kernel vs plain, forward: the ``luong_attn`` kernels, on every route
    that takes each shape ("decode": bf16 up to 32 rows; "wgmma": bf16, h a
    multiple of 64; "fma": all), at the decode ticks (8 and 4 slots, 32
-   rows), the training step's shape (2048 rows), ragged rows (N=48, R=129),
+   rows), the training step's shape (2048 rows), the input-feeding step's
+   per-step calls (N=1, M=32: 64 rows, and a rank's row block of 32),
+   ragged rows (N=48, R=129),
    one and 129 source positions, the ``tests/kernel_harness.py`` shapes and
    an all-masked row, fp32 and bf16 at TOL_ATTN; bf16 on the new routes
    also against the plain version's fp32 output, within twice that
    output's own bf16 rounding error (relative L2 and max abs), two calls
    bit-identical, and a control with each row's last unmasked source
    position dropped must miss that bound; the ``lstm_cell`` kernels at the harness's shapes, a shape
-   of three ragged row tiles and the model's two full-width shapes, fp32 and
+   of three ragged row tiles and the model's three full-width shapes (In 512,
+   1024 and the input-feeding decoder's layer 0, 1536 = 40 chunks of 64
+   with h), fp32 and
    bf16, the old mixed feed (fp32 weights: the FMA kernel), the model's feed
    (x and weights bf16, h and c fp32: the tensor-core kernel, held to
    LSTM_MMA_TOL, with a control that rounds h to bf16 and must miss it), and a
@@ -29,8 +33,8 @@ Phases, each printed as it runs; any failure exits nonzero:
    ``autograd.Function`` against autograd through its plain version, at the
    full-width training shapes (and the Luong forward output beside them);
    then the column-shard ``lstm_cell`` of the tensor-parallel backbone (h
-   [64, 1024] whole, c and the weights of Hs = 512 or 256 units, In 512 and
-   1024): every shard on the tensor-core kernel (LSTM_MMA_TOL, with the
+   [64, 1024] whole, c and the weights of Hs = 512 or 256 units, In 512,
+   1024 and 1536): every shard on the tensor-core kernel (LSTM_MMA_TOL, with the
    h-rounding control) and on the FMA kernel (TOL_TIGHT) against the plain
    version, each bit-identical to the square kernel's column block on the
    same inputs, and its adjoint against autograd through the plain version;
@@ -76,6 +80,28 @@ Phases, each printed as it runs; any failure exits nonzero:
    ``lstm_cell`` launches (layers x (M + N) a rank, every one on the
    tensor-core kernel at the shard's shape) counted; each rank's allocated
    bytes of params and Adam moments beside the meshless step's;
+8c. input feeding (the paper's HybridNMTIF): the full-width model with
+   Hc_{t-1} fed into decoder layer 0 ([emb; Hc], In 1536), the decoder
+   step-major with eq. 1-4 inside its recurrence (but at the last step,
+   whose Hc feeds none).  (a) The meshless step: one fp32 step at dropout
+   0.3 on the kernel path against the plain path (loss within
+   STEP_LOSS_TOL, every grad leaf at STEP_TOL), then 4 bf16 steps through
+   ``Trainer``, each launching ``lstm_cell`` layers x (M + N) times, every
+   one on the tensor-core kernel (the wrapper counts them by depth: N at
+   In=1536), and ``luong_attn`` N times on the "wgmma" route (N - 1
+   per-step calls on 64 rows, one over all steps; counted by rows), median
+   step time beside the card's name and power limit, then one step under
+   ``torch.profiler``.  (b) One spawn of two ranks on the card over gloo,
+   with its own time limit: one fp32 step each of MODEL, HYBRID, HYBRID
+   pipelined (2 microbatches; it runs tensor-parallel) and HYBRID_OPT at
+   1 x 2 and HYBRID_OPT at 2 x 1, every grad leaf gathered whole against
+   (a)'s fp32 step; then one bf16 step of MODEL and HYBRID at 1 x 2 against
+   (a)'s bf16 step on the same batch, each rank's launches counted by
+   shape: layers x (M + N) column-shard cells, all tensor-core, N - 1
+   per-step calls on its row block of 32 ("decode") and one over all steps
+   ("wgmma"); then faults planted in MODEL 1 x 2 (IF_FAULTS): the fp32
+   checks and the bf16 bounds must catch the wrong Hc row order and the
+   dropped Hc grad, and read eq. 1-4 on all rows as the sound step;
 9. timing with CUDA events: ``luong_attn`` at the decode tick on the
    "decode" route and at the training shape on the "wgmma" route, each
    beside the first kernel (the "fma" route), the plain version and the "torch" stage
@@ -84,7 +110,10 @@ Phases, each printed as it runs; any failure exits nonzero:
    (L2 flushed and warm; and at In=512), beside the fp32-masters feed's FMA
    kernel, the plain version and ``torch.lstm_cell`` in bf16; and the
    column shard (Hs = 512) beside its plain version and ``torch.lstm_cell``
-   on the same GEMM;
+   on the same GEMM; both again at the input-feeding decoder's layer 0
+   (In=1536); ``luong_attn``'s input-feeding per-step call at 64 rows
+   ("wgmma") and 32 ("decode") beside its bound, its plain version and the
+   "torch" stage path;
 10. ``flash_attn`` kernel vs plain, on every route that takes the inputs:
     fp32 on the FMA kernel ("fma"); bf16 on the wgmma kernel ("wgmma", D=64
     and 128), the mma.sync kernel ("mma", D a multiple of 16) and the FMA
@@ -164,9 +193,9 @@ Phases, each printed as it runs; any failure exits nonzero:
     nowhere in the port, ``torch.bmm`` x 3 plus the gate.
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
-launches of the serving runs, the training run and the hybrid phase's bf16
-steps, each counted from 0 around its run, the last also as
-``hybrid_launches``; ``luong_attn`` one record per route on the main path,
+launches of the serving runs, the training run, the hybrid phase's and the
+input-feeding phase's bf16 steps, each counted from 0 around its run, the
+last two also as ``hybrid_launches`` and ``input_feeding_launches``; ``luong_attn`` one record per route on the main path,
 ``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
 power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
@@ -232,6 +261,10 @@ HARNESS_SHAPES = [
 # source position and 129 of them, and an all-masked row on each route.
 TIMING_SHAPE = dict(B=4, N=1, M=64, h=1024)  # the serving phase's decode tick: 4 slots, max_len 64
 LUONG_TRAIN_SHAPE = dict(B=64, N=32, M=32, h=1024)  # the training step's head: 2048 rows
+# the input-feeding step's eq. 1-4 of one target step: the meshless step's 64 rows ("wgmma"), and one
+# rank's row block of 32 on a model axis of 2 ("decode"), against the source bucket of 32
+LUONG_IF_STEP_SHAPE = dict(B=64, N=1, M=32, h=1024)
+LUONG_IF_BLOCK_SHAPE = dict(B=32, N=1, M=32, h=1024)
 PARITY_CASES = (
     [("decode", dict(B=8, N=1, M=64, h=1024), None, True),
      ("decode-tick", TIMING_SHAPE, None, True),
@@ -242,7 +275,9 @@ PARITY_CASES = (
      ("M-1", dict(B=2, N=40, M=1, h=1024), None, True),
      ("M-129-decode", dict(B=8, N=1, M=129, h=1024), None, True),
      ("M-129", dict(B=2, N=24, M=129, h=1024), None, True),
-     ("rows-32-decode", dict(B=32, N=1, M=64, h=1024), None, True)]
+     ("rows-32-decode", dict(B=32, N=1, M=64, h=1024), None, True),
+     ("if-step", LUONG_IF_STEP_SHAPE, None, True),
+     ("if-step-row-block", LUONG_IF_BLOCK_SHAPE, None, True)]
     + [(f"harness-{i}", s, None, False) for i, s in enumerate(HARNESS_SHAPES)]
     + [("all-masked-row", dict(B=3, N=2, M=5, h=16), 1, False),
        ("all-masked-row-h64", dict(B=3, N=2, M=5, h=64), 1, False),
@@ -260,14 +295,18 @@ LSTM_HARNESS_SHAPES = [
     dict(B=8, In=16, H=32), dict(B=4, In=64, H=64), dict(B=16, In=24, H=128),
     dict(B=1, In=8, H=16), dict(B=6, In=24, H=40), dict(B=7, In=13, H=24),
 ]
-# the training step's cells: layer 0 (emb 512 in) and layers 1-3 (h 1024 in), batch 64
-LSTM_MODEL_SHAPES = [dict(B=64, In=512, H=1024), dict(B=64, In=1024, H=1024)]
+# the training step's cells: layer 0 (emb 512 in) and layers 1-3 (h 1024 in), batch 64; with input feeding
+# decoder layer 0 takes [emb; Hc] (In 1536: with H 1024 a depth of 40 chunks of 64)
+LSTM_MODEL_SHAPES = [dict(B=64, In=512, H=1024), dict(B=64, In=1024, H=1024), dict(B=64, In=1536, H=1024)]
 LSTM_ROW_TILES_SHAPE = dict(B=130, In=40, H=72)  # three of the kernel's 64-row tiles, the last ragged
 LSTM_TIMING_SHAPE = LSTM_MODEL_SHAPES[1]
 # the tensor-parallel backbone's column-shard cells at full width: h [64, 1024] whole, Hs of the 1024 units
-# (Hs = 512 on a model axis of 2, 256 on 4), layer 0 (emb 512 in) and layers 1-3 (h 1024 in)
-LSTM_SHARD_SHAPES = [dict(B=64, In=i, H=1024, Hs=hs) for i in (512, 1024) for hs in (512, 256)]
+# (Hs = 512 on a model axis of 2, 256 on 4), layer 0 (emb 512 in), layers 1-3 (h 1024 in) and the
+# input-feeding decoder's layer 0 (1536 in)
+LSTM_SHARD_SHAPES = [dict(B=64, In=i, H=1024, Hs=hs) for i in (512, 1024, 1536) for hs in (512, 256)]
 LSTM_SHARD_TIMING_SHAPE = dict(B=64, In=1024, H=1024, Hs=512)
+LSTM_IF_TIMING_SHAPE = LSTM_MODEL_SHAPES[2]  # the input-feeding decoder's layer 0
+LSTM_IF_SHARD_TIMING_SHAPE = dict(B=64, In=1536, H=1024, Hs=512)
 # fp32 comparisons of a whole training step (tests/test_plan.py's tolerance)
 STEP_TOL = dict(atol=1e-4, rtol=1e-3)
 STEP_LOSS_TOL = 1e-4
@@ -720,7 +759,7 @@ def phase_serve(params, cfg):
     engine.run(prompts[:2], 2)  # warm-up: first cuBLAS calls, allocator
     torch.cuda.synchronize()
     luong_ops.reset_launches()
-    lstm_ops.lstm_cell_fused.launches = 0
+    lstm_ops.reset_launches()
     t0 = time.perf_counter()
     outs = engine.run(prompts, 24)
     torch.cuda.synchronize()
@@ -789,7 +828,7 @@ def phase_train(cfg):
     lstm_launches = luong_launches = 0
     cell = lstm_ops.lstm_cell_fused
     for step in range(1, TRAIN_STEPS + 1):
-        cell.launches = cell.mma_launches = cell.fma_launches = 0
+        lstm_ops.reset_launches()
         luong_ops.reset_launches()
         trainer.run(1, log_every=1, log=lambda line: None)
         n_lstm, n_luong = cell.launches, luong_ops.luong_attention_fused.launches
@@ -913,7 +952,7 @@ def hybrid_rank(grid, cfg, ref_path: str, schedules: tuple) -> dict:
     for sched in schedules:
         plan = ExecutionPlan(strategy="hybrid", mesh=grid, use_pipeline=True, micro_batches=HYBRID_MICRO,
                              schedule=sched, stage_kernel="cuda")
-        lstm_ops.lstm_cell_fused.launches = 0
+        lstm_ops.reset_launches()
         luong_ops.reset_launches()
         t0 = time.perf_counter()
         loss, _, grads = make_grad_fn(cfg, plan)(params, batch, _hybrid_generator(grid.device))
@@ -933,15 +972,35 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def layouts_rank(grid, cfg, ref_path: str) -> dict:
-    """Phase (c) on one rank of the two on the card (gloo, every collective
-    through host memory): for each of LAYOUT_CASES on a grid of its shape
-    over these two ranks, one fp32 step of the full-width ``cfg`` on this
-    rank's blocks, the grads gathered whole and held (rank 0) against the
-    meshless step's saved by the parent; the bytes of params and Adam
-    moments this rank stores; then for the tensor-parallel MODEL and HYBRID
-    one bf16 step, its kernels' launches counted and its loss and grads
-    (gathered whole) held against the meshless bf16 step's."""
+@contextlib.contextmanager
+def _planted(patch: dict):
+    """``core/strategy.py::Sharding`` with the methods of ``patch`` ({name:
+    (the method) -> its faulty replacement}) replaced, in this process."""
+    from repro_torch.core.strategy import Sharding
+
+    saved = {name: getattr(Sharding, name) for name in patch}
+    for name, make in patch.items():
+        setattr(Sharding, name, make(saved[name]))
+    try:
+        yield
+    finally:
+        for name, method in saved.items():
+            setattr(Sharding, name, method)
+
+
+def layouts_rank(grid, cfg, ref_path: str, cases: tuple = LAYOUT_CASES, faults: bool = False) -> dict:
+    """Phase 8b (c) and 8c (b) on one rank of the two on the card (gloo,
+    every collective through host memory): for each of ``cases`` on a grid
+    of its shape over these two ranks, one fp32 step of the full-width
+    ``cfg`` on this rank's blocks, its kernels' launches counted, the grads
+    gathered whole and held (rank 0) against the meshless step's saved by
+    the parent; the bytes of params and Adam moments this rank stores; then
+    for the tensor-parallel MODEL and HYBRID without the pipeline one bf16
+    step, its kernels' launches counted (by shape, and ``luong_attn`` by
+    route) and its loss and grads (gathered whole) held against the meshless
+    bf16 step's.  With ``faults``, on the first case one fp32 and one bf16
+    step with each of IF_FAULTS planted (:func:`_planted`), read the same
+    way."""
     from repro_torch.launch.mesh import ProcessGrid
     from repro_torch.train.trainer import init_train_state
 
@@ -952,8 +1011,38 @@ def layouts_rank(grid, cfg, ref_path: str) -> dict:
     ref = torch.load(ref_path, weights_only=False) if grid.rank == 0 else None
     grids = {grid.shape: grid}
     out = {}
-    cell = lstm_ops.lstm_cell_fused
-    for label, shape, kw in LAYOUT_CASES:
+    cell, luong = lstm_ops.lstm_cell_fused, luong_ops.luong_attention_fused
+
+    def bf16_step(plan, params) -> dict:
+        lstm_ops.reset_launches()
+        luong_ops.reset_launches()
+        bloss, _, bgrads = make_grad_fn(cfg, plan)(params, batch, _hybrid_generator(grid.device))
+        res = dict(bf16_loss=float(bloss), bf16_lstm=cell.launches, bf16_lstm_mma=cell.mma_launches,
+                   bf16_lstm_shapes=dict(cell.launches_by_shape), bf16_luong=luong.launches,
+                   bf16_luong_routes=dict(luong.launches_by_route), bf16_luong_shapes=dict(luong.launches_by_shape))
+        full = plan.gather_params(bgrads, cfg)
+        del bgrads
+        if grid.rank == 0:
+            rel, leaf = _grad_rel_errors(full, [x.to(grid.device) for x in ref["bf16_grads"]])
+            res.update(bf16_loss_err=abs(float(bloss) - ref["bf16_loss"]), bf16_grad_rel=rel, bf16_grad_leaf=leaf)
+        return res
+
+    def fp32_step(plan, params) -> dict:
+        t0 = time.perf_counter()
+        loss, _, grads = make_grad_fn(cfg, plan)(params, batch, _hybrid_generator(grid.device))
+        loss = float(loss)  # waits for the step
+        step_s = time.perf_counter() - t0
+        full = plan.gather_params(grads, cfg)
+        del grads
+        if grid.rank != 0:
+            return {"step_s": step_s}
+        want = [x.to(grid.device) for x in ref["grads"]]
+        err, bad = _grad_errors(full, want)
+        rel, leaf = _grad_rel_errors(full, want)
+        return dict(step_s=step_s, loss=loss, loss_err=abs(loss - ref["loss"]), max_abs_err=err,
+                    bad_leaf=bad, grad_rel=rel, grad_leaf=leaf)
+
+    for label, shape, kw in cases:
         if shape not in grids:
             grids[shape] = ProcessGrid(*shape, device=grid.device, timeout_s=grid.timeout.total_seconds())
         g = grids[shape]
@@ -964,33 +1053,19 @@ def layouts_rank(grid, cfg, ref_path: str) -> dict:
         res = {"param_bytes": _tree_bytes(state.params), "moment_bytes": _tree_bytes(state.opt_state.m)
                + _tree_bytes(state.opt_state.v)}
         del state
-        cell.launches = cell.mma_launches = cell.fma_launches = 0
+        lstm_ops.reset_launches()
         luong_ops.reset_launches()
-        t0 = time.perf_counter()
-        loss, _, grads = make_grad_fn(cfg, plan)(params, batch, _hybrid_generator(grid.device))
-        float(loss)
-        res.update(step_s=time.perf_counter() - t0, lstm=cell.launches, lstm_fma=cell.fma_launches,
-                   luong=luong_ops.luong_attention_fused.launches)
-        full = plan.gather_params(grads, cfg)
-        del grads
-        if grid.rank == 0:
-            err, bad = _grad_errors(full, [x.to(grid.device) for x in ref["grads"]])
-            res.update(loss=float(loss), loss_err=abs(float(loss) - ref["loss"]), max_abs_err=err, bad_leaf=bad)
-        del full
+        res.update(fp32_step(plan, params))
+        res.update(lstm=cell.launches, lstm_fma=cell.fma_launches,
+                   luong=luong.launches, tensor_parallel=plan.for_config(cfg).tensor_parallel)
+        bplan = ExecutionPlan(mesh=g, stage_kernel="cuda", compute_dtype="bfloat16", **kw)
         if plan.tensor_parallel and kw["strategy"] in ("model", "hybrid"):
-            bplan = ExecutionPlan(mesh=g, stage_kernel="cuda", compute_dtype="bfloat16", **kw)
-            cell.launches = cell.mma_launches = 0
-            luong_ops.reset_launches()
-            bloss, _, bgrads = make_grad_fn(cfg, bplan)(params, batch, _hybrid_generator(grid.device))
-            res.update(bf16_loss=float(bloss), bf16_lstm=cell.launches, bf16_lstm_mma=cell.mma_launches,
-                       bf16_luong=luong_ops.luong_attention_fused.launches,
-                       bf16_luong_wgmma=luong_ops.luong_attention_fused.launches_by_route["wgmma"])
-            full = bplan.gather_params(bgrads, cfg)
-            del bgrads
-            if grid.rank == 0:
-                rel, leaf = _grad_rel_errors(full, [x.to(grid.device) for x in ref["bf16_grads"]])
-                res.update(bf16_loss_err=abs(float(bloss) - ref["bf16_loss"]), bf16_grad_rel=rel, bf16_grad_leaf=leaf)
-            del full
+            res.update(bf16_step(bplan, params))
+        if faults and label == cases[0][0]:
+            res["faults"] = {}
+            for name, patch, _ in IF_FAULTS:
+                with _planted(patch):
+                    res["faults"][name] = {**fp32_step(plan, params), **bf16_step(bplan, params)}
         del params
         torch.cuda.empty_cache()
         out[label] = res
@@ -1040,7 +1115,7 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
 
         # launches: the meshless step with the same micro_batches, then the pipelined bf16 steps
         it = lambda: MTBatchIterator(SyntheticMTTask(vocab_size=tcfg.vocab_size), batch_size=64, seed=3)  # noqa: E731
-        cell.launches = cell.mma_launches = 0
+        lstm_ops.reset_launches()
         luong_ops.reset_launches()
         meshless = Trainer(tcfg, adam(lr=1e-3), it(), plan=ExecutionPlan(stage_kernel="cuda", compute_dtype="bfloat16",
                                                                            micro_batches=HYBRID_MICRO), seed=0,
@@ -1059,7 +1134,7 @@ def phase_hybrid(tcfg, device="cuda") -> tuple:
             trainer = Trainer(tcfg, adam(lr=1e-3), it(), plan=plan, seed=0)
             twin = it()
             for step in range(1, HYBRID_BF16_STEPS + 1):
-                cell.launches = cell.mma_launches = 0
+                lstm_ops.reset_launches()
                 luong_ops.reset_launches()
                 trainer.run(1, log_every=1, log=lambda line: None)
                 b = next(twin)
@@ -1162,10 +1237,10 @@ def phase_layouts(cfg32, ref: dict, meshless_bytes: tuple, M: int, N: int, L: in
             want = L * (M + N)  # each rank: every layer's every step, on its column shard
             for r, rr in enumerate((r0, r1)):
                 if rr["bf16_lstm"] != want or rr["bf16_lstm_mma"] != want or rr["bf16_luong"] != 1 \
-                        or rr["bf16_luong_wgmma"] != 1 or not np.isfinite(rr["bf16_loss"]):
+                        or rr["bf16_luong_routes"]["wgmma"] != 1 or not np.isfinite(rr["bf16_loss"]):
                     fail(f"layouts (c) {label} bf16 rank {r}: lstm_cell {rr['bf16_lstm']} launches "
                          f"({rr['bf16_lstm_mma']} tensor-core), want {want}; luong_attn {rr['bf16_luong']} "
-                         f"({rr['bf16_luong_wgmma']} wgmma), want 1; loss {rr['bf16_loss']}")
+                         f"({rr['bf16_luong_routes']}), want 1 on wgmma; loss {rr['bf16_loss']}")
             if not r0["bf16_loss_err"] <= BF16_TP_LOSS_TOL or not r0["bf16_grad_rel"] <= BF16_TP_GRAD_REL:
                 fail(f"layouts (c) {label} bf16: loss |diff| {r0['bf16_loss_err']:.3e} from the meshless bf16 step "
                      f"(bound {BF16_TP_LOSS_TOL}), grad leaf {r0['bf16_grad_leaf']} relative error "
@@ -1180,6 +1255,228 @@ def phase_layouts(cfg32, ref: dict, meshless_bytes: tuple, M: int, N: int, L: in
     print(f"[layouts] (c) both ranks done in {wall:.1f}s")
     bf16 = [r[label] for r in ranks for label, _, _ in LAYOUT_CASES if "bf16_lstm" in r[label]]
     return sum(x["bf16_lstm"] for x in bf16), sum(x["bf16_luong"] for x in bf16)
+
+
+IF_BF16_STEPS = 4  # phase 8c (a): the meshless input-feeding step through Trainer; the median is over steps 2-4
+IF_RANK_LIMIT_S = 600  # phase 8c (b): both ranks, every layout
+# phase 8c (b): (label, grid, plan keywords) of the input-feeding layouts on two ranks of the card, every one
+# tensor-parallel (the pipelined plan too: its decoder has no backbone to pipeline); the first two also
+# take a bf16 step
+IF_LAYOUT_CASES = (
+    ("model TP 1x2", (1, 2), dict(strategy="model")),
+    ("hybrid TP 1x2", (1, 2), dict(strategy="hybrid")),
+    ("hybrid pipelined 1x2", (1, 2), dict(strategy="hybrid", use_pipeline=True, micro_batches=HYBRID_MICRO)),
+    ("hybrid_opt 1x2 (vocab-parallel head)", (1, 2), dict(strategy="hybrid_opt")),
+    ("hybrid_opt 2x1 (FSDP)", (2, 1), dict(strategy="hybrid_opt")),
+)
+# phase 8c (b)'s bf16 tensor-parallel input-feeding steps against the meshless bf16 step: the loss as
+# phase (c)'s (BF16_TP_LOSS_TOL: it read |diff| 0 on MODEL and HYBRID); the grads take phase (c)'s dx
+# rounding and, each step, eq. 1-4 on a rank's 32 rows on the "decode" route where the meshless step's 64
+# take "wgmma", the difference carried through the recurrence.  The grad bound lies between what the sound
+# step reads and what the planted faults below read (PERF.md §6, the input-feeding findings)
+BF16_IF_LOSS_TOL = 1e-4
+BF16_IF_GRAD_REL = 2e-2  # per leaf, ||grad - meshless|| / ||meshless||
+# the fp32 steps of phase 8c (b) are also held to a relative bound per leaf: STEP_TOL's atol is above most of
+# a grad leaf's entries at this model's random initialization, so it alone lets a grad that is wrong by a
+# tenth of its norm pass
+IF_FP32_GRAD_REL = 1e-4
+# phase 8c (b)'s planted faults, each one fp32 and one bf16 step of the first layout with methods of its
+# ``Sharding`` replaced (:func:`_planted`), read as the sound steps: (name, {method: (method) -> faulty
+# method}, whether both the fp32 check and the bf16 bounds must catch it).  The gathered Hc's row blocks in
+# the wrong order; Hc's grad dropped (the gather's output detached); eq. 1-4 on all the data shard's rows
+# on every model rank, with no gather, which must read as the sound step does: each rank's dHc is its term
+# of the sum (the next step's shard cells' dx), eq. 1-4's backward is linear in it, and the reduce-scatter
+# of h adds the terms
+IF_FAULTS = (
+    ("Hc row blocks swapped", {"gather_rows": lambda f: lambda self, t: torch.roll(f(self, t), t.shape[0], 0)},
+     True),
+    ("Hc grad dropped", {"gather_rows": lambda f: lambda self, t: f(self, t).detach()}, True),
+    ("eq. 1-4 on all rows, no gather", {"step_rows": lambda f: lambda self, t: t,
+                                        "gather_rows": lambda f: lambda self, t: t}, False),
+)
+
+
+def _if_cell_shapes(cfg, M: int, N: int, Hs: int) -> dict:
+    """{("mma", In, Hs): launches} of one input-feeding step's cells: the
+    encoder's layer 0 (In = emb) and the layers above (In = h) M times, the
+    decoder's layer 0 (In = emb + h) and the layers above N times."""
+    E, H, L = cfg.emb_size, cfg.d_model, cfg.num_layers
+    want: dict = {}
+    for In, n in ((E, M), (H, (L - 1) * (M + N)), (E + H, N)):
+        want[("mma", In, Hs)] = want.get(("mma", In, Hs), 0) + n
+    return want
+
+
+def phase_input_feeding(tcfg, device="cuda") -> tuple:
+    """Phase 8c: the paper's input-feeding step (HybridNMTIF) at full width:
+    Hc_{t-1} joins decoder layer 0's input ([emb; Hc], In 1536), so the
+    decoder runs step-major with eq. 1-4 inside its recurrence (not at the
+    last step, whose Hc feeds none).  (a) The meshless step: one fp32 step
+    on the kernel path against the plain path (dropout 0.3, the encoder's),
+    then IF_BF16_STEPS bf16 steps through Trainer, each launching lstm_cell
+    layers x (M + N) times, every one on the tensor-core kernel (counted by
+    depth), and luong_attn N times (N - 1 per-step calls on 64 rows, one
+    over all steps), with the median step time and one profiled step.  (b)
+    Two ranks on this card over gloo: one fp32 step of each of
+    IF_LAYOUT_CASES against (a)'s fp32 step, then one bf16 step of MODEL and
+    HYBRID at 1 x 2 against (a)'s bf16 step on the same batch, each rank's
+    launches counted by shape: layers x (M + N) column-shard cells, N - 1
+    per-step calls on its 32 rows ("decode") and one over all steps
+    ("wgmma"); and IF_FAULTS planted in MODEL 1 x 2.  Returns (lstm_cell
+    launches of the bf16 steps, their In=1536 launches (square, shard),
+    luong_attn launches by route, the per-step calls' by route), every count
+    read from the wrappers' counters."""
+    from repro_torch.launch.mesh import spawn_grid
+
+    icfg = dataclasses.replace(tcfg, input_feeding=True)
+    cfg32 = dataclasses.replace(icfg, dtype="float32")
+    L, E, Hd = cfg32.num_layers, cfg32.emb_size, cfg32.d_model
+    params = s2s.init_seq2seq(0, cfg32, device=device)
+    batch = _hybrid_batch(cfg32, device)
+    M, N = batch["src"].shape[1], batch["tgt_in"].shape[1]
+    cell, luong = lstm_ops.lstm_cell_fused, luong_ops.luong_attention_fused
+    steps = {}
+    for sk in ("cuda", "torch"):
+        lstm_ops.reset_launches()
+        luong_ops.reset_launches()
+        steps[sk] = make_grad_fn(cfg32, ExecutionPlan(stage_kernel=sk))(params, batch, _hybrid_generator(device))
+        float(steps[sk][0])
+        steps[sk] += ((cell.launches, luong.launches),)
+    (lk, _, gk, nk), (lp, _, gp, npl) = steps["cuda"], steps["torch"]
+    if nk != (L * (M + N), N) or npl != (0, 0):
+        fail(f"input feeding fp32 step: launches (lstm_cell, luong_attn) {nk} on the kernel path, want "
+             f"({L * (M + N)}, {N}); {npl} on the plain path, want none")
+    dloss = abs(float(lk) - float(lp))
+    err, bad = _grad_errors(gk, gp)
+    if dloss > STEP_LOSS_TOL or bad is not None:
+        fail(f"input feeding fp32 step: kernel path loss {float(lk)} vs plain {float(lp)}, grad leaf {bad} outside "
+             f"atol {STEP_TOL['atol']} rtol {STEP_TOL['rtol']} (max abs err {err:.3e})")
+    print(f"[input-feeding] (a) fp32 step, dropout {cfg32.dropout}, batch 64 M={M} N={N}, kernel path vs plain path: "
+          f"loss {float(lk):.6f} vs {float(lp):.6f} (|diff| {dloss:.2e} <= {STEP_LOSS_TOL}); {len(tree_leaves(gk))} "
+          f"grad leaves max_abs_err {err:.3e} (atol {STEP_TOL['atol']}, rtol {STEP_TOL['rtol']}); kernel path "
+          f"launches lstm_cell {nk[0]} = layers x (M + N), luong_attn {nk[1]} = N (N - 1 per-step calls, one over "
+          "all steps)")
+    ref = {"loss": float(lk), "grads": [g.cpu() for g in tree_leaves(gk)]}
+    del steps, gk, gp
+    bloss, _, bgrads = make_grad_fn(cfg32, ExecutionPlan(stage_kernel="cuda", compute_dtype="bfloat16"))(
+        params, batch, _hybrid_generator(device))
+    ref.update(bf16_loss=float(bloss), bf16_grads=[g.cpu() for g in tree_leaves(bgrads)])
+    del bgrads, params
+    torch.cuda.empty_cache()
+
+    it = lambda: MTBatchIterator(SyntheticMTTask(vocab_size=icfg.vocab_size), batch_size=64, seed=3)  # noqa: E731
+    trainer = Trainer(icfg, adam(lr=1e-3), it(), plan=ExecutionPlan(stage_kernel="cuda", compute_dtype="bfloat16"),
+                      seed=0, device=device)
+    twin = it()
+    lstm_total = square_1536 = 0
+    routes = dict.fromkeys(luong_ops.ROUTES, 0)
+    step_routes = dict.fromkeys(luong_ops.ROUTES, 0)
+    for step in range(1, IF_BF16_STEPS + 1):
+        lstm_ops.reset_launches()
+        luong_ops.reset_launches()
+        trainer.run(1, log_every=1, log=lambda line: None)
+        b = next(twin)
+        Mb, Nb, Bb = b["src"].shape[1], b["tgt_in"].shape[1], b["src"].shape[0]
+        h = trainer.history[-1]
+        cells, heads = dict(cell.launches_by_shape), dict(luong.launches_by_shape)
+        want_cells = _if_cell_shapes(icfg, Mb, Nb, Hd)
+        want_heads = {("wgmma", Bb, 1): Nb - 1, ("wgmma", Bb, Nb): 1}
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            fail(f"input feeding bf16 step {step}: loss {h['loss']} grad norm {h['grad_norm']}")
+        if cells != want_cells or heads != want_heads:
+            fail(f"input feeding bf16 step {step}: lstm_cell launches by (kernel, In, Hs) {cells}, want {want_cells} "
+                 f"(every one on the tensor-core kernel); luong_attn by (route, rows, N) {heads}, want {want_heads}")
+        print(f"[input-feeding] (a) bf16 step {step}: loss {h['loss']:.4f} grad_norm {h['grad_norm']:.4f} M={Mb} "
+              f"N={Nb} in {h['step_s'] * 1e3:.1f} ms; launches lstm_cell {cell.launches} by (kernel, In, Hs) {cells}, "
+              f"luong_attn {luong.launches} by (route, rows, N) {heads}")
+        lstm_total += cell.launches
+        square_1536 += cells.get(("mma", E + Hd, Hd), 0)
+        routes["wgmma"] += luong.launches_by_route["wgmma"]
+        step_routes["wgmma"] += heads.get(("wgmma", Bb, 1), 0)
+    ms = [x["step_s"] * 1e3 for x in trainer.history[1:]]
+    tok_s = sum(x["tokens"] for x in trainer.history[1:]) / sum(x["step_s"] for x in trainer.history[1:])
+    print(f"[input-feeding] (a) bf16 over fp32 masters, Adam lr 1e-3, dropout {icfg.dropout}, batch 64: median step "
+          f"{float(np.median(ms)):.1f} ms over steps 2-{IF_BF16_STEPS}, {tok_s:.0f} target tok/s ({nvidia_smi_line()}); "
+          f"losses {[round(x['loss'], 4) for x in trainer.history]}")
+    _profile(lambda: trainer.run(1, log_every=1, log=lambda line: None),
+             "one input-feeding training step (meshless, bf16)", top=12)
+    del trainer
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="input-feeding-") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, ref_path)
+        t0 = time.perf_counter()
+        ranks = spawn_grid(layouts_rank, 1, 2, args=(cfg32, ref_path, IF_LAYOUT_CASES, True), device="cuda:0",
+                           backend="gloo", timeout_s=IF_RANK_LIMIT_S, collective_timeout_s=120.0, threads=0)
+        wall = time.perf_counter() - t0
+    shard_1536 = 0
+    Hs = Hd // 2
+    for label, shape, kw in IF_LAYOUT_CASES:
+        r0, r1 = ranks[0][label], ranks[1][label]
+        if not (r0["tensor_parallel"] and r1["tensor_parallel"]):
+            fail(f"input feeding (b) {label}: the plan does not run tensor-parallel")
+        if r0["loss_err"] > STEP_LOSS_TOL or r0["bad_leaf"] is not None or r0["grad_rel"] > IF_FP32_GRAD_REL:
+            fail(f"input feeding (b) {label}: loss |diff| {r0['loss_err']:.2e}, grad leaf {r0['bad_leaf']} outside "
+                 f"tolerance (max abs err {r0['max_abs_err']:.3e}), largest ||diff|| / ||meshless|| "
+                 f"{r0['grad_rel']:.3e} (bound {IF_FP32_GRAD_REL})")
+        for r, rr in enumerate((r0, r1)):
+            if (rr["lstm"], rr["luong"]) != (L * (M + N), N):
+                fail(f"input feeding (b) {label} rank {r}: launches lstm_cell {rr['lstm']}, luong_attn {rr['luong']}; "
+                     f"want {L * (M + N)}, {N}")
+        print(f"[input-feeding] (b) {label}, two processes on this card over gloo (collectives through host memory), "
+              f"fp32, dropout {cfg32.dropout}: loss {r0['loss']:.6f} vs meshless {ref['loss']:.6f} (|diff| "
+              f"{r0['loss_err']:.2e}); grads gathered whole, max_abs_err {r0['max_abs_err']:.3e} (atol "
+              f"{STEP_TOL['atol']}, rtol {STEP_TOL['rtol']}), largest ||diff|| / ||meshless|| {r0['grad_rel']:.3e} "
+              f"(bound {IF_FP32_GRAD_REL}); "
+              f"launches per rank lstm_cell {r0['lstm']}, {r1['lstm']}, luong_attn {r0['luong']}, {r1['luong']}; "
+              f"stored params {r0['param_bytes']}, {r1['param_bytes']} B per rank; step {r0['step_s'] * 1e3:.0f} ms "
+              "(host-staged, not a speed figure)")
+        if "bf16_lstm" not in r0:
+            continue
+        rows = 64 // 2 if kw["strategy"] == "hybrid" else 64  # HYBRID's phase boundary: a rank's row block
+        want_cells = _if_cell_shapes(cfg32, M, N, Hs)
+        want_heads = {("decode", 32, 1): N - 1, ("wgmma", rows, N): 1}
+        for r, rr in enumerate((r0, r1)):
+            if rr["bf16_lstm_shapes"] != want_cells or rr["bf16_luong_shapes"] != want_heads \
+                    or not np.isfinite(rr["bf16_loss"]):
+                fail(f"input feeding (b) {label} bf16 rank {r}: lstm_cell launches by (kernel, In, Hs) "
+                     f"{rr['bf16_lstm_shapes']}, want {want_cells}; luong_attn by (route, rows, N) "
+                     f"{rr['bf16_luong_shapes']}, want {want_heads}; loss {rr['bf16_loss']}")
+            lstm_total += rr["bf16_lstm"]
+            shard_1536 += rr["bf16_lstm_shapes"].get(("mma", E + Hd, Hs), 0)
+            for route in ("decode", "wgmma"):
+                routes[route] += rr["bf16_luong_routes"][route]
+            step_routes["decode"] += rr["bf16_luong_shapes"].get(("decode", 32, 1), 0)
+        if not r0["bf16_loss_err"] <= BF16_IF_LOSS_TOL or not r0["bf16_grad_rel"] <= BF16_IF_GRAD_REL:
+            fail(f"input feeding (b) {label} bf16: loss |diff| {r0['bf16_loss_err']:.3e} from the meshless bf16 step "
+                 f"(bound {BF16_IF_LOSS_TOL}), grad leaf {r0['bf16_grad_leaf']} relative error "
+                 f"{r0['bf16_grad_rel']:.3e} (bound {BF16_IF_GRAD_REL})")
+        print(f"[input-feeding] (b) {label} bf16: loss {r0['bf16_loss']:.6f} vs meshless bf16 {ref['bf16_loss']:.6f} "
+              f"(|diff| {r0['bf16_loss_err']:.3e} <= {BF16_IF_LOSS_TOL}); grads gathered whole, largest ||diff|| / "
+              f"||meshless|| {r0['bf16_grad_rel']:.3e} (leaf {r0['bf16_grad_leaf']}, bound {BF16_IF_GRAD_REL}); "
+              f"launches a rank, counted by shape: lstm_cell {r0['bf16_lstm_shapes']}, {r1['bf16_lstm_shapes']} "
+              f"(kernel, In, Hs: the tensor-core column shard); luong_attn {r0['bf16_luong_shapes']}, "
+              f"{r1['bf16_luong_shapes']} (route, rows, N)")
+    faults = ranks[0][IF_LAYOUT_CASES[0][0]]["faults"]
+    wrong = []
+    for name, _, must_catch in IF_FAULTS:
+        f = faults[name]
+        fp32_caught = f["loss_err"] > STEP_LOSS_TOL or f["bad_leaf"] is not None or f["grad_rel"] > IF_FP32_GRAD_REL
+        bf16_caught = not (f["bf16_loss_err"] <= BF16_IF_LOSS_TOL and f["bf16_grad_rel"] <= BF16_IF_GRAD_REL)
+        print(f"[input-feeding] (b) {IF_LAYOUT_CASES[0][0]} with a planted fault, {name}: fp32 loss |diff| "
+              f"{f['loss_err']:.3e}, max_abs_err {f['max_abs_err']:.3e}, largest ||diff|| / ||meshless|| "
+              f"{f['grad_rel']:.3e} (leaf {f['grad_leaf']}, bound {IF_FP32_GRAD_REL}): "
+              f"{'caught' if fp32_caught else 'passes'}; "
+              f"bf16 loss |diff| {f['bf16_loss_err']:.3e} (bound {BF16_IF_LOSS_TOL}), largest ||diff|| / ||meshless|| "
+              f"{f['bf16_grad_rel']:.3e} (leaf {f['bf16_grad_leaf']}, bound {BF16_IF_GRAD_REL}): "
+              f"{'caught' if bf16_caught else 'passes'}")
+        if (fp32_caught, bf16_caught) != (must_catch, must_catch):
+            wrong.append(f"{name!r}: fp32 caught {fp32_caught}, bf16 caught {bf16_caught}, want {must_catch} for both")
+    if wrong:
+        fail(f"input feeding (b): planted faults read against the checks: {'; '.join(wrong)}")
+    print(f"[input-feeding] (b) both ranks done in {wall:.1f}s")
+    return lstm_total, {"square": square_1536, "shard": shard_1536}, routes, step_routes
 
 
 def _median_ms(fn, runs: int, flush, hide_host: bool) -> float:
@@ -1227,13 +1524,41 @@ def luong_bound_ms(s: dict) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def phase_timing(serve_launches: int, train_launches: int, ticks: int, max_err: float) -> list:
+def luong_if_step_timing(route: str, s: dict, flush, runs: int, launches: int) -> dict:
+    """One input-feeding step's eq. 1-4 call (N = 1) on ``route``, bf16,
+    model scales, L2 flushed (the step's cells stream the decoder's 25 MB of
+    bf16 weights between two head calls), beside the plain version and the
+    "torch" stage path's bf16 eq. 1-4 (the yardstick)."""
+    H, S, mask, wa, wc = luong_inputs(s, torch.bfloat16, seed=6, model_scales=True)
+    h = s["h"]
+    args = (H, S, mask.to(torch.int32), wa, wc)
+    if luong_ops.pick_route(torch.bfloat16, h, s["B"] * s["N"]) != route:
+        fail(f"luong_attn at {s}: the wrapper picks {luong_ops.pick_route(torch.bfloat16, h, s['B'] * s['N'])}, "
+             f"not {route}")
+    plain = lambda: luong_attention_ref(H, S, mask, wa, wc[:h], wc[h:])  # noqa: E731
+    t = {"kernel": _median_ms(lambda: luong_ops.luong_attention_fused(*args), runs, flush, True),
+         "plain": _median_ms(plain, runs, flush, True),
+         "torch": _median_ms(lambda: luong_torch_path(*args), runs, flush, True)}
+    err = (luong_ops.luong_attention_fused(*args).float() - plain().float()).abs().max().item()
+    bound_ms, bound_by, nbytes, flops = luong_bound_ms(s)
+    print(f"[timing] luong_attn, one input-feeding step's call at {s} bf16 on the {route} route, median of {runs} "
+          f"runs, L2 flushed: kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, the torch stage path "
+          f"(yardstick, cuBLAS) {t['torch']:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {flops} FLOP), "
+          f"kernel {t['kernel'] / bound_ms:.2f}x its bound; max_abs_err vs plain {err:.3e}; {launches} launches of "
+          "per-step calls on this route in the input-feeding bf16 steps")
+    return {"shape": dict(s), "launches": launches, "ms": t["kernel"], "plain_ms": t["plain"],
+            "torch_path_ms": t["torch"], "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
+def phase_timing(serve_launches: int, train_launches: int, ticks: int, max_err: float, if_step: dict) -> list:
     """luong_attn, bf16, model scales, L2 flushed (the decode tick streams 100+
     MB of other weights between two head calls, and the training step far
     more), at the serving tick's call on the "decode" route and the training
     step's on the "wgmma" route; beside each, the first kernel (the "fma" route), the plain
     version and the "torch" stage path (the yardstick).  One record per
-    route: its launches are those of the main path's run that takes it."""
+    route: its launches are those of the main path's run that takes it.
+    Then the input-feeding step's per-step call on each route
+    (``luong_if_step_timing``; ``if_step``: their launches by route)."""
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     records = []
     for route, s, runs, launches in (("decode", TIMING_SHAPE, 60, serve_launches),
@@ -1273,9 +1598,12 @@ def phase_timing(serve_launches: int, train_launches: int, ticks: int, max_err: 
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "fma_route_ms": t["fma"], "torch_path_ms": t["torch"], "scratch_mb": scratch[route],
             "shape": s,
+            "input_feeding_step": luong_if_step_timing(
+                route, LUONG_IF_BLOCK_SHAPE if route == "decode" else LUONG_IF_STEP_SHAPE, flush, runs, if_step[route]),
         })
-    print(f"[timing] luong_attn: {serve_launches} decode-route launches in the serving run ({ticks} decode ticks), "
-          f"{train_launches} wgmma-route launches in the training run ({TRAIN_STEPS} steps); library_ms: none (no "
+    print(f"[timing] luong_attn: {serve_launches} decode-route launches in the serving run ({ticks} decode ticks) "
+          f"and the input-feeding ranks' per-step calls, {train_launches} wgmma-route launches in the training "
+          "runs (the meshless, hybrid, tensor-parallel and input-feeding bf16 steps); library_ms: none (no "
           "single PyTorch call computes eq. 1-4; the torch stage path above is the yardstick)")
     return records
 
@@ -1292,14 +1620,14 @@ def _lstm_bound(args, outs) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def lstm_shard_timing(flush, runs: int, launches: int) -> dict:
-    """The column-shard cell at LSTM_SHARD_TIMING_SHAPE (h [64, 1024] whole,
-    512 units: the tensor-parallel backbone's cell on a model axis of 2) on
-    the model's feed, L2 flushed, beside its plain version; no PyTorch call
+def lstm_shard_timing(flush, runs: int, launches: int, s: dict = LSTM_SHARD_TIMING_SHAPE) -> dict:
+    """The column-shard cell at ``s`` (h [64, 1024] whole, 512 units: the
+    tensor-parallel layouts' cell on a model axis of 2; In 1024, or 1536 for
+    the input-feeding decoder's layer 0) on the model's feed, L2 flushed,
+    beside its plain version; no PyTorch call
     computes a column shard (``torch.lstm_cell`` takes c as wide as h), so
     the yardstick is ``torch.lstm_cell`` on the same GEMM: a cell of Hs
     units whose input is [x | h's other units], all bf16."""
-    s = LSTM_SHARD_TIMING_SHAPE
     B, In, Hin, Hs = s["B"], s["In"], s["H"], s["Hs"]
     x, h, c, wx, wh, b = _shard_args(lstm_inputs(s, (torch.float32,) * 6, seed=8, model_scales=True), 0, Hs)
     xb = x.bfloat16()
@@ -1325,24 +1653,27 @@ def lstm_shard_timing(flush, runs: int, launches: int) -> dict:
           f"{runs} runs, L2 flushed: {t['kernel']:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
           f"3.35 TB/s, {flops} FLOP at 989 TFLOP/s), {t['kernel'] / bound_ms:.2f}x its bound; plain version "
           f"{t['plain']:.4f} ms; yardstick torch.lstm_cell on the same GEMM (bf16, not a column shard) "
-          f"{t['yardstick']:.4f} ms; max_abs_err vs plain {err:.3e}; {launches} column-shard launches in the "
-          "tensor-parallel bf16 steps")
+          f"{t['yardstick']:.4f} ms; max_abs_err vs plain {err:.3e}; {launches} column-shard launches at this "
+          "shape in the tensor-parallel bf16 steps")
     return {"shape": dict(s), "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
             "yardstick_ms": t["yardstick"], "launches": launches, "max_abs_err": err}
 
 
-def phase_lstm_timing(launches: int, max_err: float, shard_launches: int = 0) -> dict:
+def phase_lstm_timing(launches: int, max_err: float, shard_launches: int, if_launches: dict) -> dict:
     """The lstm_cell kernel at the training step's shape on the model's feed
     (x bf16, the weights cast and packed once as a layer call does, h and c
     fp32: the tensor-core kernel), with the L2 flushed and warm (a layer's
-    16.8 MB of bf16 weights stay in the 50 MB L2 between timesteps), and at
-    In=512; beside it the old fp32-masters feed (the FMA kernel), the plain
-    version on the model's feed and ``torch.lstm_cell`` in bf16 (all inputs
-    bf16, its weights in PyTorch's [4H, in] layout) as the library yardstick."""
+    16.8 MB of bf16 weights stay in the 50 MB L2 between timesteps), at
+    In=512, and at the input-feeding decoder's layer 0 (In=1536); beside it
+    the old fp32-masters feed (the FMA kernel), the plain version on the
+    model's feed and ``torch.lstm_cell`` in bf16 (all inputs bf16, its
+    weights in PyTorch's [4H, in] layout) as the library yardstick; then the
+    column shards at In 1024 and 1536.  ``if_launches``: the input-feeding
+    bf16 steps' launches at In=1536, square and column shard."""
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     runs = 40
     times = {}
-    for s in (LSTM_TIMING_SHAPE, LSTM_MODEL_SHAPES[0]):
+    for s in (LSTM_TIMING_SHAPE, LSTM_MODEL_SHAPES[0], LSTM_IF_TIMING_SHAPE):
         B, In, H = s["B"], s["In"], s["H"]
         x, h, c, wx, wh, b = lstm_inputs(s, (torch.float32,) * 6, seed=6, model_scales=True)
         xb = x.bfloat16()
@@ -1361,14 +1692,23 @@ def phase_lstm_timing(launches: int, max_err: float, shard_launches: int = 0) ->
               f"median of {runs} runs: device time {t['kernel']:.4f} ms with the L2 flushed, "
               f"{t['kernel_warm']:.4f} ms warm; bound {bound_ms * 1e3:.2f} us ({bound_by}: {nbytes} B at "
               f"3.35 TB/s, {flops} FLOP at 989 TFLOP/s)")
-        if s is LSTM_TIMING_SHAPE:
-            lib_args = (xb, (h.bfloat16(), c.bfloat16()), wx.reshape(In, 4 * H).t().contiguous().bfloat16(),
-                        wh.reshape(H, 4 * H).t().contiguous().bfloat16(), b.reshape(-1).bfloat16(),
-                        torch.zeros(4 * H, dtype=torch.bfloat16, device="cuda"))
+        if s is LSTM_MODEL_SHAPES[0]:
+            continue
+        lib_args = (xb, (h.bfloat16(), c.bfloat16()), wx.reshape(In, 4 * H).t().contiguous().bfloat16(),
+                    wh.reshape(H, 4 * H).t().contiguous().bfloat16(), b.reshape(-1).bfloat16(),
+                    torch.zeros(4 * H, dtype=torch.bfloat16, device="cuda"))
+        t["plain"] = _median_ms(lambda: lstm_cell_ref(*plain_args), runs, flush, True)
+        t["library"] = _median_ms(lambda: torch.lstm_cell(*lib_args), runs, flush, True)
+        if s is LSTM_IF_TIMING_SHAPE:
+            print(f"[timing] lstm_cell at B={B} In={In} H={H} (the input-feeding decoder's layer 0), L2 flushed: "
+                  f"plain version {t['plain']:.4f} ms; torch.lstm_cell (bf16) {t['library']:.4f} ms; "
+                  f"{if_launches['square']} launches at this shape in the meshless input-feeding bf16 steps")
+            if_square = {"shape": dict(s), "launches": if_launches["square"], "ms": t["kernel"],
+                         "ms_warm": t["kernel_warm"], "plain_ms": t["plain"], "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": t["library"]}
+        else:
             fp32_feed = lambda: lstm_ops.lstm_cell_fused(xb, h, c, wx, wh, b)  # noqa: E731
             t["fp32_masters"] = _median_ms(fp32_feed, runs, flush, True)
-            t["plain"] = _median_ms(lambda: lstm_cell_ref(*plain_args), runs, flush, True)
-            t["library"] = _median_ms(lambda: torch.lstm_cell(*lib_args), runs, flush, True)
             t["kernel_call"] = _median_ms(kernel, runs, flush, False)
             old_bound, _, old_bytes, _ = _lstm_bound((xb, h, c, wx, wh, b), got)
             print(f"[timing] lstm_cell at B={B} In={In} H={H}, L2 flushed: the old fp32-masters feed (FMA kernel) "
@@ -1381,6 +1721,9 @@ def phase_lstm_timing(launches: int, max_err: float, shard_launches: int = 0) ->
         "launches": launches, "max_abs_err": max_err, "ms": times["kernel"], "plain_ms": times["plain"],
         "bound_ms": record_bound[0], "bound_by": record_bound[1], "library_ms": times["library"],
         "column_shard": lstm_shard_timing(flush, runs, shard_launches),
+        "input_feeding": {"square": if_square,
+                          "column_shard": lstm_shard_timing(flush, runs, if_launches["shard"],
+                                                            LSTM_IF_SHARD_TIMING_SHAPE)},
     }
 
 
@@ -1850,7 +2193,7 @@ def moe_config():
 
 
 def _reset_launches():
-    lstm_ops.lstm_cell_fused.launches = 0
+    lstm_ops.reset_launches()
     luong_ops.reset_launches()
     flash_ops.reset_launches()
     moe_ops.reset_launches()
@@ -2151,9 +2494,14 @@ def main():
     lstm_launches, train_luong_launches = phase_train(tcfg)
     phase_step_paths(tcfg)
     hybrid_lstm, hybrid_luong, tp_lstm, tp_luong = phase_hybrid(tcfg)
-    records = phase_timing(serve_launches, train_luong_launches + hybrid_luong + tp_luong, ticks, max_err)
-    records.append(phase_lstm_timing(lstm_launches + hybrid_lstm + tp_lstm, lstm_err, tp_lstm))
+    if_lstm, if_1536, if_routes, if_step_routes = phase_input_feeding(tcfg)
+    records = phase_timing(serve_launches + if_routes["decode"],
+                           train_luong_launches + hybrid_luong + tp_luong + if_routes["wgmma"], ticks, max_err,
+                           if_step_routes)
+    records.append(phase_lstm_timing(lstm_launches + hybrid_lstm + tp_lstm + if_lstm, lstm_err, tp_lstm, if_1536))
     records[1]["hybrid_launches"], records[-1]["hybrid_launches"] = hybrid_luong + tp_luong, hybrid_lstm + tp_lstm
+    records[0]["input_feeding_launches"], records[1]["input_feeding_launches"] = if_routes["decode"], if_routes["wgmma"]
+    records[-1]["input_feeding_launches"] = if_lstm
     flash_err = phase_flash_parity()
     lm_cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="bfloat16")
     t0 = time.perf_counter()

@@ -67,7 +67,9 @@ the column shard of H/M units of each gate that it stores; per timestep its
 cell (``kernels/lstm_cell`` at the shard's shape) makes [B, H/M] of h, and an
 all-gather over ``model`` rebuilds h [B, H] for the next timestep and the
 next layer.  The backward reduce-scatters dh over ``model``: each rank's dh
-is its columns' term of the sum.
+is its columns' term of the sum.  The input-feeding decoder runs the same
+cells (:class:`ShardCells`) step-major, one cell of one timestep per
+autograd node.
 """
 from __future__ import annotations
 
@@ -100,21 +102,10 @@ def layer_stage(layer: int, num_layers: int, num_stages: int, virtual_stages: in
     return (layer // (Lp // virtual_stages)) % num_stages
 
 
-class _StageCells:
-    """One stage's Lp cells on one kernel path, weights cast once per call."""
-
-    def __init__(self, layers: List[dict], dt: torch.dtype, stage_kernel: str):
-        self.kind, self.dt = stage_kernel, dt
-        with torch.no_grad():
-            if stage_kernel == "cuda":
-                from repro_torch.kernels.lstm_cell.ops import cast_weights
-
-                self.w = [cast_weights(p["wx"], p["wh"], p["b"], dt) for p in layers]
-            elif stage_kernel == "torch":
-                self.pc = [lstm.cast_cell(p, dt) for p in layers]
-            else:
-                raise ValueError(f"stage_kernel must be one of {lstm.STAGE_KERNELS}, got {stage_kernel!r}")
-        self.layers = layers
+class _StageCells(lstm.StepCells):
+    """One stage's Lp cells on one kernel path, weights cast once per call,
+    called outside autograd: the forward of a cell, and its backward from its
+    saved inputs."""
 
     def forward(self, l: int, x, h, c):
         """(x [B, in] dt, h, c [B, H] fp32) -> (h, c) fp32, as the meshless cell."""
@@ -126,23 +117,29 @@ class _StageCells:
         st, _ = lstm.cell_step(self.pc[l], x, lstm.LSTMCellState(h, c))
         return st.h, st.c
 
-    def backward(self, l: int, x, h, c, dh_state, dc, dh_out):
+    def backward(self, l: int, x, h, c, dh_state, dc, dh_out=None):
         """Grads of one cell from its inputs: ``dh_state`` (fp32) and ``dc``
-        reach its h and c from the next timestep, ``dh_out`` (dt) its output
-        cast to the compute dtype.  Returns (dx in dt, dh fp32, dc fp32,
-        [dwx, dwh, db] fp32), the values the meshless step's autograd gives."""
+        reach its h and c from the next timestep, ``dh_out`` (dt; None: no
+        such grad) its output cast to the compute dtype.  Returns (dx in dt,
+        dh fp32, dc fp32, [dwx, dwh, db] fp32), the values the meshless
+        step's autograd gives."""
         if self.kind == "cuda":
             from repro_torch.kernels.lstm_cell.ops import lstm_cell_adjoint
 
             w = self.w[l]
-            dx, dh, dc_in, dwx, dwh, db = lstm_cell_adjoint(x, h, c, w.wx, w.wh, w.b, dh_state + dh_out.float(), dc)
+            dh_new = dh_state if dh_out is None else dh_state + dh_out.float()
+            dx, dh, dc_in, dwx, dwh, db = lstm_cell_adjoint(x, h, c, w.wx, w.wh, w.b, dh_new, dc)
             return dx.to(x.dtype), dh, dc_in, [dwx, dwh, db]
         p = self.layers[l]
         masters = {k: p[k].detach().requires_grad_() for k in ("wx", "wh", "b")}
         ins = [x.detach().requires_grad_(), h.detach().requires_grad_(), c.detach().requires_grad_()]
         with torch.enable_grad():
             st, h_dt = lstm.cell_step(self.pc[l], ins[0], lstm.LSTMCellState(ins[1], ins[2]), masters=masters)
-            grads = torch.autograd.grad([st.h, st.c, h_dt], ins + list(masters.values()), [dh_state, dc, dh_out])
+            outs, douts = [st.h, st.c], [dh_state, dc]
+            if dh_out is not None:
+                outs.append(h_dt)
+                douts.append(dh_out)
+            grads = torch.autograd.grad(outs, ins + list(masters.values()), douts)
         return grads[0], grads[1], grads[2], list(grads[3:])
 
 
@@ -503,15 +500,63 @@ def batch_shard_backbone(grid, batch_axes: tuple, dropout: float = 0.0, stage_ke
     return run
 
 
+class ShardCells(_StageCells):
+    """A stacked LSTM's layers on this rank's column shards of their units (h
+    [B, H] whole, c and the weights of this rank's H/M units).  A cell's
+    forward is the column-shard cell, then one all-gather of h over
+    ``model``; its backward is one reduce-scatter of dh (this rank's term of
+    the sum), then the cell's adjoint.  The tensor-parallel backbone runs
+    them layer-major (:class:`_TensorParallelLayer`); the input-feeding
+    decoder calls them one cell and one timestep at a time, each call one
+    :class:`_ShardCellFn` whose weight grads go to the shard's fp32 masters
+    (autograd sums them over the steps)."""
+
+    def __init__(self, grid, axis: str, layers: List[dict], dt: torch.dtype, stage_kernel: str):
+        super().__init__(layers, dt, stage_kernel)  # cast (and packed) once per call
+        self.grid, self.axis = grid, axis
+
+    def shard_forward(self, l: int, x, h, c):
+        """(x [B, In] dt, h [B, H] whole, c [B, H/M], fp32) -> (h [B, H] whole, c [B, H/M]) fp32."""
+        h_shard, c = self.forward(l, x, h, c)
+        return self.grid.all_gather(h_shard, self.axis, dim=1), c
+
+    def shard_backward(self, l: int, x, h, c, dh, dc):
+        """dh [B, H] fp32 (this rank's term of the sum over ``model``), dc [B,
+        H/M] -> (dx in dt, dh [B, H], dc, [dwx, dwh, db]): dx and dh this
+        rank's terms, the weight grads the shard's, fp32."""
+        return self.backward(l, x, h, c, self.grid.reduce_scatter(dh, self.axis, dim=1), dc)
+
+    def __call__(self, l: int, x_t: torch.Tensor, state: lstm.LSTMCellState):
+        p = self.layers[l]
+        h, c = _ShardCellFn.apply(self, l, x_t, state.h, state.c, p["wx"], p["wh"], p["b"])
+        return lstm.LSTMCellState(h=h, c=c), h.to(self.dt)
+
+
+class _ShardCellFn(torch.autograd.Function):
+    """One cell of one timestep of :class:`ShardCells`, as an autograd node."""
+
+    @staticmethod
+    def forward(ctx, cells, l: int, x, h, c, wx, wh, b):
+        ctx.save_for_backward(x, h, c)
+        ctx.cells, ctx.l = cells, l
+        return cells.shard_forward(l, x, h, c)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        x, h, c = ctx.saved_tensors
+        cells, ctx.cells = ctx.cells, None
+        dx, dh_in, dc_in, dw = cells.shard_backward(ctx.l, x, h, c, dh.float(), dc.float())
+        return (None, None, dx, dh_in, dc_in, *dw)
+
+
 class _TensorParallelLayer:
-    """One LSTM layer on this rank's column shard of its units: the forward
-    over the timesteps (the column-shard cell, then the all-gather of h over
-    ``model``) and its backward (the reduce-scatter of dh, then the cell's
-    adjoint)."""
+    """One LSTM layer of :class:`ShardCells` over the timesteps, as one
+    autograd node: the forward of every timestep, and the backward of every
+    timestep from the saved states."""
 
     def __init__(self, grid, axis: str, layer: dict, dt: torch.dtype, stage_kernel: str):
-        self.grid, self.axis, self.dt = grid, axis, dt
-        self.cells = _StageCells([layer], dt, stage_kernel)  # cast (and packed) once per layer call
+        self.dt = dt
+        self.cells = ShardCells(grid, axis, [layer], dt, stage_kernel)  # cast (and packed) once per layer call
         self.hidden, self.units = layer["wh"].shape[0], layer["wh"].shape[2]
         self.shapes = [layer[n].shape for n in ("wx", "wh", "b")]
 
@@ -525,8 +570,7 @@ class _TensorParallelLayer:
         out = x.new_empty((B, S, self.hidden))  # contiguous, as the meshless stack and the head kernel take it
         for t in range(S):
             self.states.append((h, c))
-            h_shard, c = self.cells.forward(0, self.x_steps[t], h, c)
-            h = self.grid.all_gather(h_shard, self.axis, dim=1)
+            h, c = self.cells.shard_forward(0, self.x_steps[t], h, c)
             out[:, t] = h.to(self.dt)
         return out
 
@@ -540,11 +584,9 @@ class _TensorParallelLayer:
         dx = torch.empty((S, B, In), dtype=self.dt, device=dev)
         dh = torch.zeros((B, self.hidden), dtype=torch.float32, device=dev)
         dc = torch.zeros((B, self.units), dtype=torch.float32, device=dev)
-        no_out = torch.zeros((B, self.units), dtype=self.dt, device=dev)  # the output's grad arrives in dh_shard
         for t in reversed(range(S)):
-            dh_shard = self.grid.reduce_scatter(dh + dy[:, t].float(), self.axis, dim=1)
             h, c = self.states[t]
-            dx[t], dh, dc, dw = self.cells.backward(0, self.x_steps[t], h, c, dh_shard, dc, no_out)
+            dx[t], dh, dc, dw = self.cells.shard_backward(0, self.x_steps[t], h, c, dh + dy[:, t].float(), dc)
             for acc, d in zip(dws, dw):
                 acc += d
         self.states = None
@@ -559,10 +601,10 @@ def tensor_parallel_backbone(grid, model_axis: str = "model", dropout: float = 0
     them), with the meshless backbone's dropout masks of its rows: the same
     on every ``model`` rank, so they drop the same units."""
     axes = stg.data_axes(grid)
-    d, D = stg.axes_index(grid, axes), stg.axes_size(grid, axes)
 
     def run(layer_params, xs, generator):
         B = xs.shape[0]
+        d, D = stg.axes_index(grid, axes), stg.axes_size(grid, axes)
         h = xs
         for li, p in enumerate(layer_params):
             layer = _TensorParallelLayer(grid, model_axis, p, xs.dtype, stage_kernel)

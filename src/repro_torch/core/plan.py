@@ -21,6 +21,10 @@ MoE LM families under ``full_kv`` and ``window``.
   any grid, are the tensor-parallel layouts (:attr:`tensor_parallel`): each
   leaf placed by the JAX rule, a rank storing only its blocks, the backbone
   on column-shard cells (``core/pipeline.py::tensor_parallel_backbone``);
+  under input feeding a pipelined MODEL or HYBRID plan on a ``model`` axis
+  above 1 runs as its tensor-parallel twin (:meth:`ExecutionPlan.for_config`):
+  its decoder runs step-major on the column-shard cells, the head inside
+  the recurrence;
 * otherwise ``micro_batches`` is the classic gradient accumulation, and
   ``overlap`` delays the all-reduce of each microbatch's head grads (with
   ``bucket_bytes``: of every grad, in size-targeted buckets) by one
@@ -69,6 +73,8 @@ on them by name.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional
@@ -154,6 +160,17 @@ def _paths(tree, prefix=(), sort=False):
             yield from _paths(v, prefix + (i,), sort)
     else:
         yield prefix, tree
+
+
+def _for_config(method):
+    """Runs a plan method whose last argument is a model config on the plan
+    that runs that config (:meth:`ExecutionPlan.for_config`)."""
+
+    @functools.wraps(method)
+    def run(plan, *args):
+        return method(plan.for_config(args[-1]), *args)
+
+    return run
 
 
 def _placed_leaves(params, placed) -> list:
@@ -253,6 +270,19 @@ class ExecutionPlan:
             return False
         return self.strategy == S.HYBRID_OPT or (
             self.strategy in (S.MODEL, S.HYBRID) and self.mesh.size(self.model_axis) > 1)
+
+    def for_config(self, cfg) -> "ExecutionPlan":
+        """The plan that runs model config ``cfg``: this one, but under input
+        feeding a pipelined MODEL or HYBRID plan on a ``model`` axis above 1
+        becomes its tensor-parallel twin (no pipeline, one microbatch: the
+        same :attr:`accum_steps` of 1).  The input-feeding decoder runs the
+        head inside its recurrence, so it has no backbone to pipeline: the
+        JAX package drops the backbone (``repro/train/trainer.py:109``) and
+        places the parameters by the strategy alone.  Every method that takes
+        ``cfg`` runs on the plan this returns."""
+        if cfg.input_feeding and self.pipelined and self.mesh.size(self.model_axis) > 1:
+            return dataclasses.replace(self, use_pipeline=False, micro_batches=1, schedule="gpipe", virtual_stages=1)
+        return self
 
     @property
     def num_stages(self) -> int:
@@ -379,6 +409,7 @@ class ExecutionPlan:
 
     # -- backbone selection -------------------------------------------------
 
+    @_for_config
     def backbone(self, cfg) -> Optional[Callable]:
         """The stacked-LSTM executor this plan prescribes for the seq2seq
         backbone (None: the plain layer loop on every row)."""
@@ -409,6 +440,7 @@ class ExecutionPlan:
 
     # -- parameter placement ------------------------------------------------
 
+    @_for_config
     def placement(self, cfg) -> dict:
         """The placement tree of ``cfg``'s seq2seq parameters: for each leaf,
         per dim, the grid axis that shards it or None.  The JAX rule
@@ -421,13 +453,15 @@ class ExecutionPlan:
             return stg.map_shapes(lambda shape: (None,) * len(shape), shapes)
         return stg.param_placement(s2s.param_specs(cfg.num_layers), shapes, self.mesh, self.strategy)
 
+    @_for_config
     def sharding(self, cfg) -> Optional[stg.Sharding]:
         """The collectives of ``cfg``'s placement, for the model's forward
-        (None unless the plan is tensor-parallel)."""
+        (None unless the plan runs ``cfg`` tensor-parallel)."""
         if not self.tensor_parallel:
             return None
         return stg.Sharding(self.mesh, self.placement(cfg), self.model_axis)
 
+    @_for_config
     def shard_params(self, params, cfg):
         """This rank's blocks of ``cfg``'s whole tree ``params``
         (``strategy.shard_params``)."""
@@ -435,6 +469,7 @@ class ExecutionPlan:
 
     # -- parameter ownership and grad sync ---------------------------------
 
+    @_for_config
     def leaf_roles(self, params, cfg) -> list:
         """One :class:`LeafRole` per leaf, in ``tree_leaves`` order.
 
@@ -471,6 +506,7 @@ class ExecutionPlan:
                 out.append(LeafRole(0, "data"))
         return out
 
+    @_for_config
     def gather_params(self, params, cfg):
         """The whole tree from this rank's part of ``cfg``'s params: every
         sharded leaf all-gathered along its sharded dims, every owned leaf

@@ -357,6 +357,32 @@ class Sharding:
         placed = self.placement["head"]
         return {n: self.gather(w, placed[n], keep=(self.axis,) if n == "f_c" else ()) for n, w in head.items()}
 
+    def step_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of its data shard's rows ``t`` (block
+        ``index(model)`` of ``size(model)``): the rows it runs eq. 1-4 on at
+        each input-feeding step, the paper's head data-parallel per step.  The
+        slice's backward leaves the other blocks' grads zero: this rank's term
+        of the sum over ``model``."""
+        M = self.grid.size(self.axis)
+        if t.shape[0] % M:
+            raise ValueError(f"{t.shape[0]} rows of a data shard do not split into {M} blocks over {self.axis!r}")
+        b = t.shape[0] // M
+        m = self.grid.index(self.axis)
+        return t[m * b:(m + 1) * b]
+
+    def step_cells(self, layers: list, dt: torch.dtype, stage_kernel: str):
+        """The input-feeding decoder's step-major cells on ``layers`` (this
+        rank's column shards): ``core/pipeline.py::ShardCells``, each cell
+        followed by its all-gather of h over ``model``."""
+        from repro_torch.core.pipeline import ShardCells  # local: pipeline imports this module
+
+        return ShardCells(self.grid, self.axis, layers, dt, stage_kernel)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`step_rows`: every rank's row block, whole over
+        ``model``, differentiably (one all-gather; its grad reduce-scattered)."""
+        return self.gather(t, (self.axis,) + (None,) * (t.dim() - 1))
+
     @property
     def vocab_parallel(self) -> bool:
         return self.placement["head"]["f_c"][1] == self.axis and self.grid.size(self.axis) > 1
@@ -434,14 +460,14 @@ class _RowBlock:
 
     def __init__(self, grid):
         self.grid = grid
-        self.M, self.m = grid.size("model"), grid.index("model")
 
     def __call__(self, x):
         return self.rows(x)
 
     def rows(self, t):
-        b = t.shape[0] // self.M
-        return t[self.m * b:(self.m + 1) * b]
+        b = t.shape[0] // self.grid.size("model")
+        m = self.grid.index("model")
+        return t[m * b:(m + 1) * b]
 
 
 class _ScatterToGrid(_RowBlock):

@@ -20,7 +20,9 @@ bit, on either kernel.
 
 ``lstm_cell_fused.launches`` counts kernel launches,
 ``lstm_cell_fused.mma_launches`` and ``lstm_cell_fused.fma_launches`` those
-of each kernel.
+of each kernel, and ``lstm_cell_fused.launches_by_shape[(kernel, In, Hs)]``
+those of each kernel (``"mma"`` or ``"fma"``) at each depth In and width Hs;
+:func:`reset_launches` sets them all to 0.
 
 The weights a cell computes with are a :class:`CellWeights`.  A layer call
 makes them once with :func:`cast_weights` and passes them to every step
@@ -181,6 +183,8 @@ def _launch(x, h, c, w: CellWeights):
         lstm_cell_fused.mma_launches += 1
     else:
         lstm_cell_fused.fma_launches += 1
+    key = ("mma" if mma else "fma", In, H)
+    lstm_cell_fused.launches_by_shape[key] = lstm_cell_fused.launches_by_shape.get(key, 0) + 1
     return h_out, c_out
 
 
@@ -268,3 +272,10 @@ def lstm_cell_fused(x, h, c, wx, wh, b, *, weights: Optional[CellWeights] = None
 lstm_cell_fused.launches = 0
 lstm_cell_fused.mma_launches = 0
 lstm_cell_fused.fma_launches = 0
+lstm_cell_fused.launches_by_shape = {}
+
+
+def reset_launches():
+    """Set every launch count of :func:`lstm_cell_fused` to 0."""
+    lstm_cell_fused.launches = lstm_cell_fused.mma_launches = lstm_cell_fused.fma_launches = 0
+    lstm_cell_fused.launches_by_shape = {}

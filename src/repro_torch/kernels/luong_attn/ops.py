@@ -13,8 +13,9 @@ Routes (``ROUTES``), by the rows R = B*N and the width h:
   "wgmma":  bf16, h a multiple of 64 up to 2048: three launches, the weight
             products on the tensor cores (the training step's 2048 rows);
   "fma":    fp32, and bf16 at other widths: the first kernel's five FMA launches.
-Each call counts once in ``luong_attention_fused.launches`` and once in
-``luong_attention_fused.launches_by_route[route]``.
+Each call counts once in ``luong_attention_fused.launches``, once in
+``luong_attention_fused.launches_by_route[route]`` and once in
+``luong_attention_fused.launches_by_shape[(route, B, N)]``.
 
 Its backward is the recompute of ``repro/kernels/luong_attn/ops.py``: the
 head is rebuilt with the plain version from the saved inputs (no activation
@@ -161,6 +162,8 @@ def _launch(H, S, src_mask, w_alpha, w_c, route):
         raise RuntimeError(f"luong_attn launch ({route}) failed: {lib.luong_attn_error_string(err).decode()} ({err})")
     luong_attention_fused.launches += 1
     luong_attention_fused.launches_by_route[route] += 1
+    key = (route, B, N)
+    luong_attention_fused.launches_by_shape[key] = luong_attention_fused.launches_by_shape.get(key, 0) + 1
     return out
 
 
@@ -203,9 +206,11 @@ def luong_attention_fused(H, S, src_mask, w_alpha, w_c, *, route=None):
 
 luong_attention_fused.launches = 0
 luong_attention_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
+luong_attention_fused.launches_by_shape = {}
 
 
 def reset_launches():
-    """Set the launch counts (total and per route) to 0."""
+    """Set the launch counts (total, per route and per shape) to 0."""
     luong_attention_fused.launches = 0
     luong_attention_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
+    luong_attention_fused.launches_by_shape = {}

@@ -7,6 +7,8 @@ on a grid of ranks.
         --num-layers 4 --device cpu --strategy hybrid --pipeline --mesh test --micro-batches 2 --batch 16
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
         --device cpu --strategy hybrid_opt --mesh test --grid 2x2 --batch 16
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
+        --device cpu --input-feeding --strategy hybrid --mesh test --grid 1x2 --batch 16
 
 Weights are random, from the port's initializer and ``--seed``; batches come
 from ``SyntheticMTTask`` through ``MTBatchIterator``, as in
@@ -21,7 +23,12 @@ meshes, raise by name), ``--pipeline`` (with ``--mesh none`` on the trivial
 ``--virtual-stages`` and ``--bucket-bytes``.  Every strategy runs: MODEL or
 HYBRID without ``--pipeline`` on a grid is the tensor-parallel layout,
 ``hybrid_opt`` adds the vocab-sharded head and FSDP (``--mesh test --grid
-1x1`` runs it on the trivial grid in one process).  ``--ckpt-dir`` writes the trained parameters at
+1x1`` runs it on the trivial grid in one process).  ``--input-feeding``
+trains the baseline / HybridNMTIF model (Hc fed into the first decoder
+layer), as the JAX launcher's flag does, on every strategy: on a model axis
+above 1 the decoder runs step-major on the column-shard cells with the head
+data-parallel per step, and a pipelined plan runs so too (it has no
+backbone to pipeline).  ``--ckpt-dir`` writes the trained parameters at
 the end (rank 0, after gathering each stage's layers and each rank's
 blocks).
 """
@@ -74,6 +81,8 @@ def main(argv=None):
     ap.add_argument("--grid", type=_grid_shape, default=None,
                     help="with --mesh test: the data x model shape of the grid, DxM (default 2x4)")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--input-feeding", action="store_true",
+                    help="baseline / HybridNMTIF: feed Hc_{t-1} into the first decoder layer")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="override the config's encoder/decoder depth (the pipeline needs it divisible by the "
                          "model axis: the smoke config's 2 layers do not split over --mesh test's 4 stages)")
@@ -106,6 +115,8 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    if args.input_feeding:
+        cfg = dataclasses.replace(cfg, input_feeding=True)
     if args.grid is not None and args.mesh != "test":
         raise SystemExit("--grid sets the shape of --mesh test")
     grid = make_mesh(args.mesh, args.pipeline, args.device, args.grid)
@@ -123,6 +134,10 @@ def main(argv=None):
         if args.pipeline and not plan.pipelined:
             say(f"warning: --pipeline has no effect for strategy={plan.strategy.value} "
                 "(wavefront needs model/hybrid); microbatches run as grad accumulation")
+        if plan.pipelined and not plan.for_config(cfg).pipelined:
+            say(f"warning: --pipeline with --input-feeding on a model axis of {grid.size(plan.model_axis)}: the "
+                "decoder's recurrence runs the head inside it, so the step runs tensor-parallel, in one forward "
+                "and backward")
         if args.schedule != "gpipe" and not plan.pipelined:
             say(f"warning: --schedule={args.schedule} has no effect without "
                 "the wavefront pipeline (needs --pipeline and model/hybrid)")
@@ -139,7 +154,7 @@ def main(argv=None):
         say(
             f"arch={cfg.name} params={n_params/1e6:.1f}M strategy={plan.strategy.value} mesh={args.mesh} "
             f"grid={shape} micro_batches={args.micro_batches} pipeline={plan.pipelined} overlap={args.overlap} "
-            f"stage_kernel={plan.stage_kernel} schedule={plan.schedule} "
+            f"stage_kernel={plan.stage_kernel} schedule={plan.schedule} input_feeding={cfg.input_feeding} "
             f"compute_dtype={plan.resolve_compute_dtype(cfg)}{mp_note} device={device}"
         )
         trainer.run(args.steps, log_every=max(args.steps // 4, 1))

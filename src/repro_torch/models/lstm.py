@@ -21,7 +21,10 @@ each cell of :func:`run_stacked_lstm`:
   fp32.  Its fp32 h is cast to the compute dtype before it enters the next
   layer.
 
-Both run layer-major: layer l covers the whole sequence before layer l+1.
+Both go through :class:`StepCells`, which casts the weights once per call.
+:func:`run_stacked_lstm` runs layer-major: layer l covers the whole sequence
+before layer l+1.  The input-feeding decoder (``models/seq2seq.py``) runs
+the same cells step-major: every layer of step t before step t+1.
 """
 from __future__ import annotations
 
@@ -116,31 +119,60 @@ def init_lstm_state(batch: int, hidden: int, device="cpu") -> LSTMCellState:
     return LSTMCellState(h=z, c=z.clone())
 
 
+class StepCells:
+    """A stacked LSTM's cells, called one cell and one timestep at a time, on
+    ``stage_kernel``'s cell (see the module docstring); the weights are cast
+    (and, for the tensor-core kernel, packed) once when the object is made, so
+    once per layer or step call rather than once per cell.  Each call is
+    differentiable and sends its weight grads to the fp32 masters ``layers``,
+    so autograd sums them over the timesteps in fp32.  Layer-major
+    (:func:`run_lstm_layer`) and step-major (the input-feeding decoder) loops
+    both call it."""
+
+    def __init__(self, layers: List[dict], dt: torch.dtype, stage_kernel: str):
+        self.kind, self.dt, self.layers = stage_kernel, dt, layers
+        with torch.no_grad():
+            if stage_kernel == "cuda":
+                from repro_torch.kernels.lstm_cell.ops import cast_weights
+
+                self.w = [cast_weights(p["wx"], p["wh"], p["b"], dt) for p in layers]
+            elif stage_kernel == "torch":
+                self.pc = [cast_cell(p, dt) for p in layers]
+            else:
+                raise ValueError(f"stage_kernel must be one of {STAGE_KERNELS}, got {stage_kernel!r}")
+
+    def init_state(self, l: int, batch: int, device) -> LSTMCellState:
+        """Zero carries of layer ``l``: h as wide as its input from below, c
+        as wide as its units (the same but for a column shard)."""
+        wh = self.layers[l]["wh"]
+        return LSTMCellState(h=torch.zeros((batch, wh.shape[0]), dtype=torch.float32, device=device),
+                             c=torch.zeros((batch, wh.shape[2]), dtype=torch.float32, device=device))
+
+    def __call__(self, l: int, x_t: torch.Tensor, state: LSTMCellState) -> Tuple[LSTMCellState, torch.Tensor]:
+        """Layer ``l``'s cell on x_t [B, in] (contiguous on the kernel path)
+        -> (fp32 state, h in the compute dtype)."""
+        p = self.layers[l]
+        if self.kind == "cuda":
+            from repro_torch.kernels.lstm_cell.ops import lstm_cell_fused
+
+            h, c = lstm_cell_fused(x_t, state.h, state.c, p["wx"], p["wh"], p["b"], weights=self.w[l])
+            return LSTMCellState(h=h, c=c), h.to(self.dt)
+        return cell_step(self.pc[l], x_t, state, masters=p)
+
+
 def run_lstm_layer(p: dict, xs: torch.Tensor, state: Optional[LSTMCellState] = None, *, stage_kernel: str = "torch"):
     """xs [B, S, in_dim] -> (hs [B, S, H] in xs's dtype, final_state): a
     loop over time where the JAX package scans."""
     B, S, _ = xs.shape
+    cells = StepCells([p], xs.dtype, stage_kernel)
     if state is None:
-        state = init_lstm_state(B, p["wh"].shape[0], xs.device)
+        state = cells.init_state(0, B, xs.device)
+    # the kernel takes each step's rows contiguous: [S, B, in]
+    x_steps = xs.transpose(0, 1).contiguous() if stage_kernel == "cuda" else xs.transpose(0, 1)
     hs = []
-    if stage_kernel == "cuda":
-        from repro_torch.kernels.lstm_cell.ops import cast_weights, lstm_cell_fused
-
-        h, c = state
-        w = cast_weights(p["wx"], p["wh"], p["b"], xs.dtype)  # once per layer call
-        x_steps = xs.transpose(0, 1).contiguous()  # [S, B, in]: each step's rows contiguous, as the kernel takes
-        for t in range(S):
-            h, c = lstm_cell_fused(x_steps[t], h, c, p["wx"], p["wh"], p["b"], weights=w)
-            hs.append(h.to(xs.dtype))
-        state = LSTMCellState(h=h, c=c)
-    elif stage_kernel == "torch":
-        with torch.no_grad():
-            pc = cast_cell(p, xs.dtype)  # once per layer call; the grads go to the masters
-        for t in range(S):
-            state, h = cell_step(pc, xs[:, t], state, masters=p)
-            hs.append(h)
-    else:
-        raise ValueError(f"stage_kernel must be one of {STAGE_KERNELS}, got {stage_kernel!r}")
+    for t in range(S):
+        state, h = cells(0, x_steps[t], state)
+        hs.append(h)
     return torch.stack(hs, dim=1), state
 
 

@@ -117,27 +117,35 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def attention_softmax_head(head: dict, S, H, src_mask, *, stage_kernel: str = "torch"):
-    """S [B,M,h] encoder states, H [B,N,h] decoder states ->
-    (Hc [B,N,h], logits [B,N,V]).
+def luong_head(head: dict, S, H, src_mask, *, stage_kernel: str = "torch"):
+    """Eq. 1-4: S [B,M,h] encoder states, H [B,N,h] decoder states -> Hc
+    [B,N,h] in H's dtype.
 
     ``stage_kernel="torch"`` runs the math below in the compute dtype (the
-    JAX ``jnp`` branch); ``"cuda"`` sends eq. 1-4 to the fused head
+    JAX ``jnp`` branch); ``"cuda"`` sends it to the fused head
     ``kernels/luong_attn`` (the JAX ``pallas`` branch), which runs its CUDA
-    kernel on the card.  Eq. 5 is a plain fp32 matmul in both."""
+    kernel on the card.  The weights are cast to H's dtype here, at each
+    call, as the JAX package casts them, so each call's weight grads reach the
+    fp32 masters in fp32."""
     dt = H.dtype
     if stage_kernel == "cuda":
         from repro_torch.kernels.luong_attn.ops import luong_attention_fused
 
-        Hc = luong_attention_fused(H, S, src_mask, head["w_alpha"].to(dt), head["w_c"].to(dt))
-    elif stage_kernel == "torch":
-        scores = torch.matmul(torch.matmul(H, head["w_alpha"].to(dt)), S.transpose(1, 2))
-        scores = torch.where(src_mask[:, None, :] != 0, scores.float(), torch.full((), -1e30, device=H.device))
-        alpha = torch.softmax(scores, dim=-1).to(dt)  # eq. 1-2
-        C = torch.matmul(alpha, S)  # eq. 3
-        Hc = torch.tanh(torch.matmul(torch.cat([H, C], dim=-1), head["w_c"].to(dt)))  # eq. 4
-    else:
+        return luong_attention_fused(H, S, src_mask, head["w_alpha"].to(dt), head["w_c"].to(dt))
+    if stage_kernel != "torch":
         raise ValueError(f"stage_kernel must be one of {STAGE_KERNELS}, got {stage_kernel!r}")
+    scores = torch.matmul(torch.matmul(H, head["w_alpha"].to(dt)), S.transpose(1, 2))
+    scores = torch.where(src_mask[:, None, :] != 0, scores.float(), torch.full((), -1e30, device=H.device))
+    alpha = torch.softmax(scores, dim=-1).to(dt)  # eq. 1-2
+    C = torch.matmul(alpha, S)  # eq. 3
+    return torch.tanh(torch.matmul(torch.cat([H, C], dim=-1), head["w_c"].to(dt)))  # eq. 4
+
+
+def attention_softmax_head(head: dict, S, H, src_mask, *, stage_kernel: str = "torch"):
+    """S [B,M,h] encoder states, H [B,N,h] decoder states -> (Hc [B,N,h],
+    logits [B,N,V]): eq. 1-4 by :func:`luong_head`, then eq. 5 as a plain
+    fp32 matmul on either ``stage_kernel``."""
+    Hc = luong_head(head, S, H, src_mask, stage_kernel=stage_kernel)
     logits = torch.matmul(Hc.float(), head["f_c"].float())  # eq. 5
     return Hc, logits
 
@@ -151,6 +159,43 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor, dt: torch.dtype) -> torch.
     """Rows of the fp32 table in the compute dtype (gathered, then cast:
     the same values as casting the table first)."""
     return table[tokens.long()].to(dt)
+
+
+def _embeddings(params: dict, batch: Seq2SeqBatch, dt: torch.dtype, sharding) -> tuple:
+    """(source, target) embeddings [B, S, e] in the compute dtype: a lookup,
+    or with ``sharding`` the lookup in this rank's vocab block."""
+    if sharding is None:
+        return _embed(params["src_emb"]["table"], batch.src, dt), _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
+    return (sharding.embed("src_emb", params["src_emb"]["table"], batch.src, dt),
+            sharding.embed("tgt_emb", params["tgt_emb"]["table"], batch.tgt_in, dt))
+
+
+def _stacks(params: dict, sharding) -> tuple:
+    """The encoder's and the decoder's layers: as stored, or with ``sharding``
+    the column shards, gathered over data where FSDP shards them."""
+    if sharding is None:
+        return params["encoder"], params["decoder"]
+    return sharding.layers("encoder", params["encoder"]), sharding.layers("decoder", params["decoder"])
+
+
+def _phase_two(head: dict, S, H, batch: Seq2SeqBatch, *, stage_kernel: str, phase_boundary, sharding, total):
+    """The reshard boundary and the data-parallel attention-softmax phase:
+    eq. 1-5 over all steps and the masked cross-entropy -> (mean loss,
+    {"logits", "denom"}).  See :func:`forward_no_input_feeding` for the hooks."""
+    src_mask, tgt_out, tgt_mask = batch.src_mask, batch.tgt_out, batch.tgt_mask
+    if phase_boundary is not None:
+        S, H = phase_boundary(S), phase_boundary(H)
+        src_mask, tgt_out, tgt_mask = (phase_boundary.rows(t) for t in (src_mask, tgt_out, tgt_mask))
+    if S.shape[0] == 0:
+        count = torch.zeros((), device=S.device)
+        denom = torch.clamp(total(count) if total is not None else count, min=1.0)
+        return (S.sum() + H.sum()).float() * 0.0, {"logits": None, "denom": denom}
+    _, logits = attention_softmax_head(head, S, H, src_mask, stage_kernel=stage_kernel)
+    if sharding is not None and sharding.vocab_parallel:
+        loss, denom = sharding.cross_entropy(logits, tgt_out, tgt_mask, total=total)
+    else:
+        loss, denom = softmax_cross_entropy(logits, tgt_out, tgt_mask, total=total)
+    return loss, {"logits": logits, "denom": denom}
 
 
 def forward_no_input_feeding(
@@ -189,35 +234,15 @@ def forward_no_input_feeding(
         return lstm.run_stacked_lstm(ps, xs, dropout_p=cfg.dropout, generator=gen, stage_kernel=stage_kernel)[0]
 
     run = backbone or run
-    if sharding is None:
-        src_e = _embed(params["src_emb"]["table"], batch.src, dt)
-        tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
-    else:
-        src_e = sharding.embed("src_emb", params["src_emb"]["table"], batch.src, dt)
-        tgt_e = sharding.embed("tgt_emb", params["tgt_emb"]["table"], batch.tgt_in, dt)
+    src_e, tgt_e = _embeddings(params, batch, dt, sharding)
+    enc, dec = _stacks(params, sharding)
     # ---- phase 1: model-parallel backbone (all hidden states) ----------
-    enc, dec = params["encoder"], params["decoder"]
-    if sharding is not None:  # the column shards, gathered over data where FSDP shards them
-        enc, dec = sharding.layers("encoder", enc), sharding.layers("decoder", dec)
     S = run(enc, src_e, generator)  # [B, M, h]
     H = run(dec, tgt_e, generator)  # [B, N, h]
-    # ---- reshard boundary (the paper's hybrid hand-off) ----------------
-    src_mask, tgt_out, tgt_mask = batch.src_mask, batch.tgt_out, batch.tgt_mask
-    if phase_boundary is not None:
-        S, H = phase_boundary(S), phase_boundary(H)
-        src_mask, tgt_out, tgt_mask = (phase_boundary.rows(t) for t in (src_mask, tgt_out, tgt_mask))
-    if S.shape[0] == 0:
-        count = torch.zeros((), device=S.device)
-        denom = torch.clamp(total(count) if total is not None else count, min=1.0)
-        return (S.sum() + H.sum()).float() * 0.0, {"logits": None, "denom": denom}
-    # ---- phase 2: data-parallel attention-softmax ----------------------
+    # ---- phase 2: the reshard boundary, then the data-parallel head ----
     head = params["head"] if sharding is None else sharding.head(params["head"])
-    _, logits = attention_softmax_head(head, S, H, src_mask, stage_kernel=stage_kernel)
-    if sharding is not None and sharding.vocab_parallel:
-        loss, denom = sharding.cross_entropy(logits, tgt_out, tgt_mask, total=total)
-    else:
-        loss, denom = softmax_cross_entropy(logits, tgt_out, tgt_mask, total=total)
-    return loss, {"logits": logits, "denom": denom}
+    return _phase_two(head, S, H, batch, stage_kernel=stage_kernel, phase_boundary=phase_boundary,
+                      sharding=sharding, total=total)
 
 
 def forward_input_feeding(
@@ -229,35 +254,62 @@ def forward_input_feeding(
     stage_kernel: str = "torch",
     total: Optional[Callable] = None,
     rows: Optional[tuple] = None,
+    phase_boundary: Optional[Callable] = None,
+    backbone: Optional[Callable] = None,
+    sharding=None,
 ):
     """Baseline / HybridNMTIF forward: Hc_{t-1} joins the first decoder
-    layer's input (Fig. 1), so the decoder is one serial loop.  As in the
-    JAX package, the cells are the plain ones and dropout applies to the
-    encoder only; ``stage_kernel`` selects the head.  On a batch-sharded
-    grid ``total`` sums the token count over the ranks and ``rows`` places
-    this rank's rows in the batch for the dropout masks."""
+    layer's input (Fig. 1), so the decoder runs step-major: every layer of
+    step t, then eq. 1-4 of step t, then step t+1; eq. 1-5 then run once over
+    all steps.  The last step's eq. 1-4 are not run: nothing reads their Hc
+    (the JAX scan computes it and XLA drops it).  ``stage_kernel`` selects
+    the cells (``"cuda"``: one ``lstm_cell`` launch per cell, the weights
+    cast and packed once per call) and the head.  As in the JAX package,
+    dropout applies to the encoder only.  On a batch-sharded grid ``total``
+    sums the token count over the ranks and ``rows`` places this rank's rows
+    in the batch for the dropout masks.
+
+    On the tensor-parallel layouts the plan supplies the hooks of
+    :func:`forward_no_input_feeding` (``backbone`` runs the encoder,
+    ``phase_boundary`` and ``sharding`` the final eq. 1-5), and the decoder's
+    cells are ``sharding``'s (``sharding.step_cells``: column shards, each
+    cell followed by its all-gather of h).  Each step's eq. 1-4 then runs on
+    this rank's row block of its data shard (``sharding.step_rows``), and
+    one all-gather over ``model`` (``sharding.gather_rows``) gives every
+    rank the whole Hc for the next step's input: the paper's head
+    data-parallel per step."""
     dt = resolve_dtype(cfg.dtype)
     h = cfg.d_model
     B, N = batch.tgt_in.shape
-    src_e = _embed(params["src_emb"]["table"], batch.src, dt)
-    tgt_e = _embed(params["tgt_emb"]["table"], batch.tgt_in, dt)
-    S = lstm.run_stacked_lstm(params["encoder"], src_e, dropout_p=cfg.dropout, generator=generator, rows=rows)[0]
-    head = params["head"]
-    dec = [lstm.cast_cell(p, dt) for p in params["decoder"]]
-    states = [lstm.init_lstm_state(B, h, src_e.device) for _ in dec]
+    src_e, tgt_e = _embeddings(params, batch, dt, sharding)
+    enc, dec = _stacks(params, sharding)
+    if backbone is None:
+        S = lstm.run_stacked_lstm(enc, src_e, dropout_p=cfg.dropout, generator=generator, stage_kernel=stage_kernel,
+                                  rows=rows)[0]
+    else:
+        S = backbone(enc, src_e, generator)
+    head = params["head"] if sharding is None else sharding.head(params["head"])  # gathered once per forward
+    if sharding is None:
+        cells, mine = lstm.StepCells(dec, dt, stage_kernel), (lambda t: t)
+    else:
+        cells, mine = sharding.step_cells(dec, dt, stage_kernel), sharding.step_rows
+    S_rows, mask_rows = mine(S), mine(batch.src_mask)
+    states = [cells.init_state(li, B, src_e.device) for li in range(len(dec))]
     hc = torch.zeros((B, h), dtype=dt, device=src_e.device)
     hs = []
     for t in range(N):
-        hcur = torch.cat([tgt_e[:, t], hc.to(dt)], dim=-1)
-        for li, pc in enumerate(dec):
-            states[li], hcur = lstm.cell_step(pc, hcur, states[li])
-        Hc, _ = attention_softmax_head(head, S, hcur[:, None, :], batch.src_mask, stage_kernel=stage_kernel)
-        hc = Hc[:, 0]
+        hcur = torch.cat([tgt_e[:, t], hc], dim=-1)
+        for li in range(len(dec)):
+            states[li], hcur = cells(li, hcur, states[li])
         hs.append(hcur)
+        if t == N - 1:
+            break
+        hc = luong_head(head, S_rows, mine(hcur)[:, None, :], mask_rows, stage_kernel=stage_kernel)[:, 0]
+        if sharding is not None:
+            hc = sharding.gather_rows(hc)
     H = torch.stack(hs, dim=1)  # [B, N, h]
-    _, logits = attention_softmax_head(head, S, H, batch.src_mask, stage_kernel=stage_kernel)
-    loss, denom = softmax_cross_entropy(logits, batch.tgt_out, batch.tgt_mask, total=total)
-    return loss, {"logits": logits, "denom": denom}
+    return _phase_two(head, S, H, batch, stage_kernel=stage_kernel, phase_boundary=phase_boundary,
+                      sharding=sharding, total=total)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: Seq2SeqBatch, **kw):

@@ -12,7 +12,11 @@ embeddings over ``data``; MODEL: all over ``data``).  On the tensor-parallel
 layouts the params, grads and optimizer moments are this rank's blocks
 (``ExecutionPlan.shard_params``): a grad is summed over the axes that do not
 shard its leaf, an FSDP leaf's grad arrives reduce-scattered over ``data``,
-and Adam steps on the blocks.  Mixed precision enters
+and Adam steps on the blocks.  A config with input feeding runs on every
+plan: on the tensor-parallel ones (a pipelined MODEL/HYBRID plan on a
+``model`` axis above 1 runs as one, ``ExecutionPlan.for_config``) its
+decoder runs step-major on the column-shard cells, eq. 1-4 of each step
+on the rank's row block.  Mixed precision enters
 through the plan's ``compute_dtype``: the weights stay fp32 masters, the
 model casts them at each use, and their grads come back fp32.  fp16 adds
 dynamic loss scaling held in the train state: an overflowed step leaves
@@ -80,7 +84,7 @@ class _GradSync:
     same bits whichever mode starts them.  Without a grid nothing is called."""
 
     def __init__(self, plan: ExecutionPlan, cfg: ModelConfig):
-        self.plan, self.grid, self.cfg = plan, plan.mesh, cfg
+        self.plan, self.grid, self.cfg = plan.for_config(cfg), plan.mesh, cfg
         self.roles = None
 
     def bind(self, params) -> None:
@@ -149,16 +153,10 @@ def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
     resolved = plan.resolve_compute_dtype(cfg)
     if resolved != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=resolved)
-    if cfg.input_feeding and plan.mesh is not None and plan.mesh.size(plan.model_axis) > 1:
-        raise NotImplementedError(
-            "input feeding on a model axis above 1: its decoder cannot run as the wavefront (the paper's §3.2), "
-            "and on the tensor-parallel backbone the head must run inside the decoder's recurrence "
-            "(ROADMAP queue 1 item 4(e))")
-    if cfg.input_feeding and plan.strategy == stg.Strategy.HYBRID_OPT and plan.mesh is not None:
-        raise NotImplementedError("input feeding under hybrid_opt: the vocab-sharded head inside the decoder's "
-                                  "recurrence (ROADMAP queue 1 item 4(e))")
+    plan = plan.for_config(cfg)
     sharding = plan.sharding(cfg)
-    backbone = None if cfg.input_feeding else plan.backbone(cfg)
+    # under input feeding only a tensor-parallel plan's backbone runs (the encoder's), as the JAX trainer drops it
+    backbone = plan.backbone(cfg) if plan.tensor_parallel or not cfg.input_feeding else None
     pb = plan.phase_boundary()
     axis = plan.loss_axis()
     total = None
@@ -175,7 +173,7 @@ def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
             src_mask=batch["src_mask"], tgt_mask=batch["tgt_mask"],
         )
         kw = dict(generator=generator, stage_kernel=plan.stage_kernel, total=total)
-        if cfg.input_feeding:
+        if cfg.input_feeding and not plan.tensor_parallel:
             kw["rows"] = plan.shard_rows(b.src.shape[0])
         else:
             kw["phase_boundary"] = pb

@@ -8,8 +8,8 @@ accounting and the executor contract (``bwd_group_size``/``bwd_group_starts``)
 equal exactly.  Cost models: equal on ``seq2seq-rnn`` and its smoke config.
 Plan: ``grad_buckets`` equals the JAX plan's on the bridged tree, every
 validator raises where JAX's does, and every layout JAX accepts builds a
-plan (input feeding on a model axis above 1, which the port does not run
-yet, raises ``NotImplementedError`` by name).
+plan and a loss function (input feeding on a model axis above 1 included:
+its plan places the parameters tensor-parallel).
 """
 from __future__ import annotations
 
@@ -187,9 +187,11 @@ def test_validators_raise_where_jax_does(kw):
 
 def test_layouts_not_ported_raise_by_name():
     """Plans JAX accepts: the port takes every one of them now (the
-    interleaved ring, the tensor-parallel backbone, HYBRID_OPT), and what it
-    still cannot run, input feeding on a model axis above 1, raises by
-    name."""
+    interleaved ring, the tensor-parallel backbone, HYBRID_OPT, and input
+    feeding on a model axis above 1, which used to raise by name): under
+    input feeding the loss function builds on a HYBRID 1 x 2 plan, with and
+    without the pipeline (building reads only the grid's shape), and the plan
+    reports the tensor-parallel placement, the JAX rule's."""
     cases = [
         (dict(schedule="interleaved", virtual_stages=2), False),
         (dict(strategy="hybrid", mesh=(1, 2)), True),
@@ -206,9 +208,15 @@ def test_layouts_not_ported_raise_by_name():
     assert ExecutionPlan(strategy="hybrid", mesh=_Grid(1, 2), use_pipeline=True).pipelined
     assert ExecutionPlan(strategy="model", mesh=_Grid(2, 4), use_pipeline=True, micro_batches=4).pipelined
     assert not ExecutionPlan(strategy="hybrid", mesh=_Grid(2, 1), micro_batches=2, overlap=True).tensor_parallel
+    from repro_torch.models import seq2seq as s2s
+
     cfg = dataclasses.replace(get_config("seq2seq-rnn", smoke=True), input_feeding=True)
-    with pytest.raises(NotImplementedError, match=r"input feeding on a model axis above 1.*ROADMAP queue 1 item 4\(e\)"):
-        make_loss_fn(cfg, ExecutionPlan(strategy="hybrid", mesh=_Grid(1, 2)))
+    for pipeline in (False, True):
+        plan = ExecutionPlan(strategy="hybrid", mesh=_Grid(1, 2), use_pipeline=pipeline)
+        assert callable(make_loss_fn(cfg, plan))
+        assert plan.for_config(cfg).tensor_parallel and plan.accum_steps == 1
+        want = stg.param_placement(s2s.param_specs(cfg.num_layers), s2s.param_shapes(cfg), plan.mesh, "hybrid")
+        assert plan.placement(cfg) == want and want["decoder"][0]["wx"] == (None, None, "model")
 
 
 @pytest.mark.parametrize("strategy,grid,pipeline", [

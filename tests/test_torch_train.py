@@ -360,6 +360,17 @@ def test_perplexity_matches_jax():
         assert abs(got - want) / want < 1e-5, (sk, got, want)
 
 
+def test_perplexity_matches_jax_input_feeding():
+    """The same with input feeding: the decoder step-major, eq. 1-4 inside
+    its recurrence, on both stage kernels."""
+    jcfg, jparams, cfg, params = _model(input_feeding=True)
+    batches = _batches(cfg, 3, seed=5)
+    want = jax_perplexity(jparams, jcfg, iter(batches), max_batches=3)
+    for sk in STAGE_KERNELS:
+        got = perplexity(params, cfg, iter(batches), max_batches=3, stage_kernel=sk)
+        assert abs(got - want) / want < 1e-5, (sk, got, want)
+
+
 def test_plan_rejects_unported_fields():
     """The JAX plan's multi-device fields are ported (``tests/test_torch_hybrid.py``
     and ``tests/test_torch_layouts.py`` drive them), ``virtual_stages`` with
@@ -389,3 +400,14 @@ def test_launcher_prints_config_and_step_lines(capsys):
     launch_train.main(["--smoke", "--device", "cpu", "--steps", "1", "--batch", "4", "--strategy", "hybrid",
                        "--pipeline", "--schedule", "interleaved", "--virtual-stages", "2"])
     assert "pipeline=True" in capsys.readouterr().out  # the ring, two layer chunks of the one stage
+
+
+def test_launcher_input_feeding_prints_config_and_falling_step_lines(capsys):
+    """``--input-feeding`` trains the baseline / HybridNMTIF model: the config
+    line says so and the loss falls over the logged steps."""
+    launch_train.main(["--arch", "seq2seq-rnn", "--smoke", "--device", "cpu", "--input-feeding", "--steps", "4",
+                       "--batch", "8", "--lr", "3e-3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=seq2seq-rnn-smoke params=") and "input_feeding=True" in lines[0]
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step")]
+    assert len(losses) == 4 and all(b < a for a, b in zip(losses, losses[1:])), losses

@@ -1,4 +1,5 @@
-"""Rank functions for the port's multi-rank tests (``tests/test_torch_hybrid.py``).
+"""Rank functions for the port's multi-rank tests (``tests/test_torch_hybrid.py``,
+``tests/test_torch_layouts.py``, ``tests/test_torch_input_feeding.py``).
 
 They run in fresh processes started by ``repro_torch.launch.mesh.spawn_grid``,
 so they live at module level in an importable file that imports no JAX.
@@ -33,7 +34,16 @@ def wide_config(dropout: float = 0.0):
     return dataclasses.replace(get_config("seq2seq-rnn", smoke=True), **WIDE, dtype="float32", dropout=dropout)
 
 
-CONFIGS = {"small": small_config, "wide": wide_config}
+def _with_input_feeding(make):
+    def config(dropout: float = 0.0):
+        return dataclasses.replace(make(dropout), input_feeding=True)
+
+    return config
+
+
+# "-if": the same models with input feeding (the first decoder layer takes [emb; Hc])
+CONFIGS = {"small": small_config, "wide": wide_config,
+           "small-if": _with_input_feeding(small_config), "wide-if": _with_input_feeding(wide_config)}
 
 
 def _stored(plan, tree) -> dict:
@@ -49,15 +59,38 @@ def _generator(seed: int) -> torch.Generator:
     return g
 
 
+class CountingGrid:
+    """A process grid that records every all-gather and reduce-scatter made
+    through it, as (op, axis, dim, shape of the block sent); everything else
+    is the grid's own."""
+
+    def __init__(self, grid):
+        self._grid = grid
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self._grid, name)
+
+    def all_gather(self, t, axis, dim=0):
+        self.calls.append(("all_gather", axis, dim, tuple(t.shape)))
+        return self._grid.all_gather(t, axis, dim)
+
+    def reduce_scatter(self, t, axis, dim=0):
+        self.calls.append(("reduce_scatter", axis, dim, tuple(t.shape)))
+        return self._grid.reduce_scatter(t, axis, dim)
+
+
 def run_cases(grid, cases: dict, params_np: dict, batch_np: dict, seed: int, config: str = "small") -> dict:
     """For each case ({"grid": (D, M), "dropout": p, "step": bool, plan
     keywords...}) on a grid of this world's size: the step's loss, token
     count and every grad leaf (gathered whole), and with "step" the grad
     norm and params after one Adam step; returned by rank 0.  With "step"
     every rank also returns the shapes of the params and Adam moments it
-    stores.  The model is ``CONFIGS[config]``.  Grids of
-    other shapes over the same ranks are built on the spawned one's
-    process group."""
+    stores.  The model is ``CONFIGS[config]``.  Each plan runs on a
+    :class:`CountingGrid`: rank 0 also returns the step's all-gathers and
+    reduce-scatters (``"calls"``, taken before the grads are gathered whole)
+    and whether the plan ran tensor-parallel.  Grids of other shapes over
+    the same ranks are built on the spawned one's process group."""
     grids = {grid.shape: grid}
     out = {}
     for name, case in cases.items():
@@ -67,15 +100,16 @@ def run_cases(grid, cases: dict, params_np: dict, batch_np: dict, seed: int, con
             continue
         if shape not in grids:
             grids[shape] = ProcessGrid(*shape, device="cpu", timeout_s=grid.timeout.total_seconds())
-        g = grids[shape]
+        g = CountingGrid(grids[shape])
         cfg = CONFIGS[config](case.pop("dropout", 0.0))
         with_step = case.pop("step", False)
         batch = batch_to_device(batch_np, "cpu")
         plan = ExecutionPlan(mesh=g, **case)
         params = plan.shard_params(bridge.params_from_jax(params_np, device="cpu"), cfg)  # this rank's blocks
         loss, extras, grads = make_grad_fn(cfg, plan)(params, batch, _generator(seed))
-        res = {"loss": float(loss), "denom": float(extras["denom"]),
-               "grads": [x.numpy() for x in tree_leaves(plan.gather_params(grads, cfg))]}
+        res = {"loss": float(loss), "denom": float(extras["denom"]), "calls": list(g.calls),
+               "tensor_parallel": plan.for_config(cfg).tensor_parallel}
+        res["grads"] = [x.numpy() for x in tree_leaves(plan.gather_params(grads, cfg))]
         if with_step:
             opt = adam(lr=1e-2)
             step = make_train_step(cfg, opt, plan=plan, clip_norm=0.05)
