@@ -190,12 +190,44 @@ Phases, each printed as it runs; any failure exits nonzero:
     (every expert has a row) and on a served step's buffer with its rows
     (the bounds count only the rows and experts with a slot), against the
     first tensor-core kernels (the mma route), its plain version and, as a yardstick used
-    nowhere in the port, ``torch.bmm`` x 3 plus the gate.
+    nowhere in the port, ``torch.bmm`` x 3 plus the gate;
+19. LM training (run after phase 13, on phase 11's fp32 masters, which the
+    trainer copies): ``qwen3-1.7b`` at full width and depth through
+    ``Trainer`` (bf16 over fp32 masters, Adam 1e-3, clip 5.0, remat on; the
+    step donates its state) on 6 batches of 4 x 2048 tokens from
+    ``LMBatchIterator(SyntheticLMTask(151936, branching=16))``, made before
+    the steps; every step launches ``flash_attn`` 56 times (28 layers,
+    forward and remat recompute), all on the "wgmma" route; median step
+    over steps 3-6, target tokens per second, one more step whose kernel
+    outputs are fingerprinted (each layer's recompute must give its
+    forward's bits), one step under ``torch.profiler`` (device busy share
+    against the median step), peak ``max_memory_allocated``; before it,
+    phase 21 (a);
+20. MoE training (run after phase 17): ``qwen3-moe-30b-a3b`` at full width,
+    its depth cut to 4 of 48 layers (16 B of training state a parameter:
+    49.8 GB at 4 layers, 70 GB at 6 before activations), as phase 19 with
+    the load-balance term in the loss (its aux printed) and ``moe_gemm``
+    launched 8 times a step with ``rows`` (forward and recompute), all on
+    "wgmma", ``flash_attn`` 8; before it, phase 21 (b);
+21. kernel path vs plain path in one fp32 training step of each LM
+    (``qwen3-1.7b`` cut to 8 layers, the MoE model at 4; batch 2 x 2048):
+    the loss within LM_STEP_LOSS_TOL and every grad leaf within
+    LM_STEP_GRAD_REL of its norm;
+22. each new backward alone at the training calls' shapes, fp32 and bf16:
+    ``flash_attn`` (B=4, S=2048, 16/8 and 32/4 heads) and ``moe_gemm``
+    ([128, 641, 2048] x 768 with ``rows``, NaN and 1e4 planted past them)
+    through the wrapper's ``autograd.Function`` against autograd through
+    the plain version (BACKWARD_REL), dx past ``rows`` exactly zero, with a
+    planted fault each that must miss the bound (dk dropped; the backward
+    recomputed without ``rows``); each backward's device time per layer, and
+    SDPA's backward beside the attention's (a yardstick).
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
 launches of the serving runs, the training run, the hybrid phase's and the
-input-feeding phase's bf16 steps, each counted from 0 around its run, the
-last two also as ``hybrid_launches`` and ``input_feeding_launches``; ``luong_attn`` one record per route on the main path,
+input-feeding phase's bf16 steps, and the LM training runs' steps 1-6, each
+counted from 0 around its run, the hybrid, input-feeding and LM training
+ones also as ``hybrid_launches``, ``input_feeding_launches`` and
+``train_launches``; ``luong_attn`` one record per route on the main path,
 ``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
 power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
@@ -206,6 +238,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -221,7 +254,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.plan import ExecutionPlan, ServePlan  # noqa: E402
-from repro_torch.data import MTBatchIterator, SyntheticMTTask  # noqa: E402
+from repro_torch.data import LMBatchIterator, MTBatchIterator, SyntheticLMTask, SyntheticMTTask  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attention_plain  # noqa: E402
 from repro_torch.kernels.lstm_cell import ops as lstm_ops  # noqa: E402
@@ -233,7 +266,7 @@ from repro_torch.kernels.moe_gemm.ref import moe_gemm_plain  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import seq2seq as s2s  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.common import tree_leaves  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, ServeEngine, pad_cache, prefill_fn  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
@@ -383,6 +416,26 @@ MOE_CONTROL_COLS = 64  # the control drops this many columns of F
 MOE_LAYERS = 8  # of qwen3-moe-30b-a3b's 48: the fp32 masters of 48 are 122 GB
 MOE_SERVE_RUN = ("a", 4, 2048, 32)  # (label, prompts, prompt tokens, new tokens)
 MOE_PATHS_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 logits after 8 MoE layers
+# LM training (phases 19-22): Trainer steps of 4 x 2048 tokens, the median over steps 3-6
+LM_TRAIN_STEPS = 6
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 2048
+# of qwen3-moe-30b-a3b's 48 layers: 16 B of training state a parameter (fp32 masters, grads, Adam m and v)
+# is 49.8 GB at 4 layers (3.11e9 parameters), 70 GB at 6 before any activation, 90 GB at the serving phase's 8
+MOE_TRAIN_LAYERS = 4
+# phase 21: the fp32 step on both paths, the dense model cut to 8 layers and both at batch 2, to keep the
+# phase's time down.  Two summation orders of attention (the fp32 kernel vs chunked_attention) and of the
+# expert FFN agree to about 1e-6 of a leaf's norm; 1e-3 leaves room for a router top-k pick that a tie within
+# that error flips, and is far below what a wrong grad moves
+LM_PATHS_LAYERS = 8
+LM_PATHS_BATCH = 2
+LM_STEP_LOSS_TOL = 1e-4
+LM_STEP_GRAD_REL = 1e-3  # per leaf, ||kernel path - plain path|| / ||plain path||
+# phase 22: the autograd.Function's grads against autograd through the plain version on the same inputs: the
+# backward is that recompute, so only a fault (or nondeterminism) moves them
+BACKWARD_REL = 1e-5
+BACKWARD_SPIN_CYCLES = 600_000_000  # about 0.3 s of device clock: longer than the host takes to enqueue a backward
+FLASH_TRAIN_SHAPE = dict(B=4, S=2048, KV=8, G=2, D=128, causal=True, window=None)  # qwen3-1.7b's training call
+FLASH_MOE_TRAIN_SHAPE = dict(B=4, S=2048, KV=4, G=8, D=128, causal=True, window=None)  # the MoE model's
 
 
 def fail(msg: str):
@@ -2471,6 +2524,288 @@ def phase_moe_timing(launches: int, routes: dict, max_err: float, prefill_buf: t
     }
 
 
+# ---------------------------------------------------------------------------
+# LM training (phases 19-22)
+# ---------------------------------------------------------------------------
+
+
+def _cut_layers(params: dict, layers: int) -> dict:
+    """The LM tree with its stacked [G, ...] blocks cut to the first ``layers``
+    (views of ``params``)."""
+    out = dict(params)
+    out["blocks"] = [tree_map(lambda a: a[:layers], blk) for blk in params["blocks"]]
+    return out
+
+
+def _digest(t: torch.Tensor) -> str:
+    """The bytes of ``t`` hashed on the host: equal digests are equal bits."""
+    return hashlib.blake2b(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes(),
+                           digest_size=16).hexdigest()
+
+
+def _check_recompute_identical(trainer, cfg, label: str) -> str:
+    """One more training step with every flash_attn and moe_gemm kernel
+    output fingerprinted: the remat recompute of layer l (in the backward,
+    last layer first) must give the forward's bits, i.e. see the same
+    dispatch and the same kernel on the same inputs."""
+    L = cfg.num_layers
+    seen = {"flash_attn": [], "moe_gemm": []}
+
+    def flash_rec(kernel, q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen["flash_attn"].append(_digest(out))
+        return out
+
+    def moe_rec(kernel, *args):
+        out = kernel(*args)
+        seen["moe_gemm"].append(_digest(out))
+        return out
+
+    with _flash_wrapped(flash_rec), _moe_wrapped(moe_rec):
+        trainer.run(1, log_every=1, log=lambda line: None)
+    want = {"flash_attn": 2 * L, "moe_gemm": 2 * L if cfg.moe is not None else 0}
+    for name, digests in seen.items():
+        if len(digests) != want[name]:
+            fail(f"({label}) the fingerprinted step made {len(digests)} {name} calls, not {want[name]}")
+        if digests[:len(digests) // 2] != digests[len(digests) // 2:][::-1]:
+            fail(f"({label}) the remat recompute of some layer's {name} call differs from its forward's bits")
+    return (f"{want['flash_attn']} flash_attn and {want['moe_gemm']} moe_gemm outputs in a step, each recompute's "
+            "bits equal to its forward's")
+
+
+def phase_lm_train(cfg, label: str, params_box: list, cut_note: str) -> dict:
+    """(19 / 20) The slice's main path: Trainer on the LM at full width, bf16
+    over fp32 masters, Adam 1e-3, clip 5.0, remat on, LM_TRAIN_STEPS steps of
+    LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from ``LMBatchIterator(SyntheticLMTask(
+    V, branching=16))``; each step must launch flash_attn twice per layer (the
+    forward and the remat recompute), all on the "wgmma" route, and an MoE
+    model's moe_gemm likewise.  Then a step that checks the recompute's bits
+    and a step under torch.profiler.  ``params_box`` holds the fp32 masters
+    (the trainer copies them; the box is emptied so the caller's copy can go).
+    Returns the launch counts and the step's numbers."""
+    L, moe = cfg.num_layers, cfg.moe is not None
+    it = LMBatchIterator(SyntheticLMTask(cfg.vocab_size, branching=16), LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
+    t0 = time.perf_counter()
+    batches = [next(it) for _ in range(LM_TRAIN_STEPS + 2)]  # made before the steps: set-up, not step time
+    make_s = (time.perf_counter() - t0) / len(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, adam(lr=1e-3), iter(batches), plan=ExecutionPlan(stage_kernel="cuda"),
+                      params=params_box.pop(), clip_norm=5.0, seed=0, device="cuda")
+    torch.cuda.empty_cache()
+    state = trainer.state
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves((state.params, state.opt_state.m,
+                                                                          state.opt_state.v)))
+    print(f"[lm-train] ({label}) {cfg.name}: {L} layers{cut_note}, d={cfg.d_model}, V={cfg.vocab_size}: {n} "
+          f"parameters; training state at 16 B a parameter {16 * n / 1e9:.2f} GB (fp32 masters and Adam m, v "
+          f"resident: {state_bytes / 1e9:.2f} GB; fp32 grads in a step); batches {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ} made in {make_s * 1e3:.0f} ms each on the host before the steps; {cfg.dtype} compute, "
+          "remat on, kernel path")
+    totals = {"flash_attn": 0, "moe_gemm": 0}
+    for step in range(1, LM_TRAIN_STEPS + 1):
+        _reset_launches()
+        trainer.run(1, log_every=1, log=lambda line: None)
+        h = trainer.history[-1]
+        nf, wf = flash_ops.flash_attention_fused.launches, flash_ops.flash_attention_fused.launches_by_route["wgmma"]
+        nm, wm = moe_ops.moe_gemm_fused.launches, moe_ops.moe_gemm_fused.launches_by_route["wgmma"]
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])) or (moe and not np.isfinite(h["moe_aux"])):
+            fail(f"({label}) training step {step}: loss {h['loss']} grad norm {h['grad_norm']} aux {h.get('moe_aux')}")
+        if nf != 2 * L or wf != nf:
+            fail(f"({label}) training step {step}: flash_attn launches {nf} (wgmma route {wf}) != 2 x {L} layers "
+                 "(forward and remat recompute), all on wgmma")
+        if (nm, wm) != ((2 * L, 2 * L) if moe else (0, 0)):
+            fail(f"({label}) training step {step}: moe_gemm launches {nm} (wgmma route {wm}), want "
+                 f"{2 * L if moe else 0} all on wgmma")
+        totals["flash_attn"] += nf
+        totals["moe_gemm"] += nm
+        aux = f" aux {h['moe_aux']:.4f}" if moe else ""
+        print(f"[lm-train] ({label}) step {step}: loss {h['loss']:.4f}{aux} grad_norm {h['grad_norm']:.4f} "
+              f"{h['tokens']:.0f} target tokens in {h['step_s'] * 1e3:.1f} ms; launches flash_attn {nf} (wgmma "
+              f"{wf}) moe_gemm {nm} (wgmma {wm})")
+    steady = trainer.history[2:]
+    step_ms = float(np.median([h["step_s"] for h in steady])) * 1e3
+    tok_s = sum(h["tokens"] for h in steady) / sum(h["step_s"] for h in steady)
+    recompute = _check_recompute_identical(trainer, cfg, label)
+    events = _profile(lambda: trainer.run(1, log_every=1, log=lambda line: None),
+                      f"({label}) one {cfg.name} training step", top=18)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy = device_ms / step_ms  # the profiled step's device time against the unprofiled median step
+    peak = torch.cuda.max_memory_allocated()
+    if int(trainer.state.opt_state.step) != LM_TRAIN_STEPS + 2:
+        fail(f"({label}) the optimizer did not take every step")
+    print(f"[lm-train] ({label}) {cfg.name}: median step {step_ms:.1f} ms over steps 3-{LM_TRAIN_STEPS}, "
+          f"{tok_s:.0f} target tok/s; {device_ms:.1f} ms of device time in a profiled step, {100 * busy:.1f}% of "
+          f"the median step (device busy share); peak "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB; {recompute}; losses "
+          f"{[round(h['loss'], 4) for h in trainer.history]}; card {nvidia_smi_line()}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"flash_attn": totals["flash_attn"], "moe_gemm": totals["moe_gemm"], "step_ms": step_ms, "tok_s": tok_s,
+            "device_ms": device_ms, "busy": busy, "peak_bytes": peak}
+
+
+def phase_lm_step_paths(cfg, params, layers: int, label: str):
+    """(21) One fp32 training step of the LM, its depth cut to ``layers``, on
+    the kernel path (flash_attn and moe_gemm: their fp32 kernels forward,
+    the plain recompute backward) and on the plain path (chunked_attention,
+    expert_ffn) on the same weights and batch: the loss within
+    LM_STEP_LOSS_TOL and every grad leaf within LM_STEP_GRAD_REL of its norm."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
+    cut = _cut_layers(params, layers)
+    it = LMBatchIterator(SyntheticLMTask(cfg.vocab_size, branching=16), LM_PATHS_BATCH, LM_TRAIN_SEQ, seed=1)
+    batch = batch_to_device(next(it), "cuda")
+    out = {}
+    for sk in ("cuda", "torch"):
+        loss, extras, grads = make_grad_fn(cfg32, ExecutionPlan(stage_kernel=sk))(cut, batch)
+        out[sk] = (float(loss), float(extras["aux"]), grads)
+    (lk, ak, gk), (lp, ap, gp) = out["cuda"], out["torch"]
+    rels = [_rel_l2(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp))]
+    worst = int(np.argmax(rels))
+    if abs(lk - lp) > LM_STEP_LOSS_TOL or not max(rels) <= LM_STEP_GRAD_REL:
+        fail(f"({label}) fp32 LM step, kernel path vs plain path: loss {lk} vs {lp}, worst grad leaf {worst} "
+             f"relative L2 {rels[worst]:.3e} (bound {LM_STEP_GRAD_REL})")
+    aux = f", aux {ak:.6f} vs {ap:.6f}" if cfg.moe is not None else ""
+    print(f"[lm-paths] ({label}) {cfg.name} fp32 step at {layers} layers, {LM_PATHS_BATCH} x {LM_TRAIN_SEQ}: loss "
+          f"kernel path {lk:.6f} vs plain path {lp:.6f} (|diff| {abs(lk - lp):.2e} <= {LM_STEP_LOSS_TOL}){aux}; "
+          f"{len(rels)} grad leaves, worst relative L2 {rels[worst]:.3e} (leaf {worst}; bound {LM_STEP_GRAD_REL})")
+    del out, gk, gp
+    torch.cuda.empty_cache()
+
+
+def _grads_of(fn, ins, cot):
+    """(output, grads of ``fn(*ins)`` with cotangent ``cot``) through autograd."""
+    live = [t.detach().requires_grad_() for t in ins]
+    out = fn(*live)
+    return out, torch.autograd.grad(out, live, cot)
+
+
+def _timed_backward_ms(fn, ins, cot, runs: int = 5) -> tuple:
+    """Medians of the backward alone of ``fn(*ins)``: (device ms between two
+    CUDA events, with the device spinning before the first while the host
+    enqueues the backward, so host time is hidden; host ms from the call to
+    its end on the device, without the spin)."""
+    dev, host = [], []
+    for i in range(runs + 2):
+        for hide in (True, False):
+            live = [t.detach().requires_grad_() for t in ins]
+            out = fn(*live)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if hide:
+                torch.cuda._sleep(BACKWARD_SPIN_CYCLES)
+            t0 = time.perf_counter()
+            start.record()
+            torch.autograd.grad(out, live, cot)
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                (dev if hide else host).append(start.elapsed_time(end) if hide else (time.perf_counter() - t0) * 1e3)
+    return float(np.median(dev)), float(np.median(host))
+
+
+@contextlib.contextmanager
+def _replaced(obj, name: str, value):
+    """``obj.name`` replaced by ``value`` for the duration: a planted fault."""
+    old = vars(obj)[name]  # the attribute itself (a class's staticmethod as it is)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _backward_rel(got: tuple, want: tuple) -> float:
+    """The worst relative L2 error over the grads (inf if any is not finite)."""
+    if not all(torch.isfinite(g).all().item() for g in got):
+        return float("inf")
+    return max(_rel_l2(g, w) for g, w in zip(got, want))
+
+
+def phase_lm_backward():
+    """(22) Each new backward alone at the training calls' shapes, fp32 and
+    bf16: the grads through the wrapper's ``autograd.Function`` (the kernel
+    forward, the plain recompute backward) against autograd through the
+    plain version on the same inputs, within BACKWARD_REL per grad; a planted
+    fault in each must miss that bound: dk dropped in flash_attn's backward,
+    and moe_gemm's backward recomputed without ``rows`` (the garbage x holds
+    past them leaks into the grads).  Then the backward's device time per
+    layer in bf16, beside scaled_dot_product_attention's backward (a
+    yardstick, used nowhere in the port).  Returns {kernel: backward ms}."""
+    out = {}
+    sound_backward = flash_ops._FlashAttention.backward
+
+    def drop_dk(ctx, do):
+        g = list(sound_backward(ctx, do))
+        g[1] = torch.zeros_like(g[1])
+        return tuple(g)
+
+    for label, s in (("dense", FLASH_TRAIN_SHAPE), ("moe", FLASH_MOE_TRAIN_SHAPE)):
+        kw = dict(causal=True, window=None, group=s["G"])
+        for dt in (torch.float32, torch.bfloat16):
+            ins = flash_inputs(s, dt, seed=21)
+            cot = torch.randn_like(ins[0])
+            kernel = lambda q, k, v: flash_ops.flash_attention_fused(q, k, v, **kw)  # noqa: E731
+            block = dict(block_q=flash_ops.BACKWARD_BLOCK, block_kv=flash_ops.BACKWARD_BLOCK)
+            _, want = _grads_of(lambda q, k, v: flash_attention_plain(q, k, v, **kw, **block), ins, cot)
+            _, got = _grads_of(kernel, ins, cot)
+            rel = _backward_rel(got, want)
+            if not rel <= BACKWARD_REL or any(g.dtype != dt for g in got):
+                fail(f"flash_attn backward ({label}, {dt}): relative L2 {rel:.3e} against autograd through the plain "
+                     f"version (bound {BACKWARD_REL}), grads {[g.dtype for g in got]}")
+            with _replaced(flash_ops._FlashAttention, "backward", staticmethod(drop_dk)):
+                frel = _backward_rel(_grads_of(kernel, ins, cot)[1], want)
+            if frel <= BACKWARD_REL:
+                fail(f"control: flash_attn backward with dk dropped passes the bound ({frel:.3e})")
+            print(f"[lm-backward] flash_attn ({label}) q {tuple(ins[0].shape)} k/v {tuple(ins[1].shape)} G={s['G']} "
+                  f"causal {dt}: grads vs autograd through the plain version, worst relative L2 {rel:.3e} (bound "
+                  f"{BACKWARD_REL}); control with dk dropped {frel:.3e} (caught)")
+        q, k, v = flash_inputs(s, torch.bfloat16, seed=22)
+        cot = torch.randn_like(q)
+        B, S, KV, G, D = s["B"], s["S"], s["KV"], s["G"], s["D"]
+        sdpa = lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q_.view(B, KV * G, S, D), k_.view(B, KV, S, D), v_.view(B, KV, S, D), is_causal=True, enable_gqa=True)
+        t_fn, h_fn = _timed_backward_ms(lambda q_, k_, v_: flash_ops.flash_attention_fused(q_, k_, v_, **kw),
+                                        (q, k, v), cot)
+        t_sdpa, _ = _timed_backward_ms(sdpa, (q, k, v), cot.view(B, KV * G, S, D))
+        out[f"flash_attn_{label}"] = t_fn
+        print(f"[lm-backward] flash_attn ({label}) bf16 backward per layer (the plain version's fp32 recompute and "
+              f"its autograd): {t_fn:.3f} ms of device time, {h_fn:.3f} ms from the call to its end (host enqueue "
+              f"included), medians of 5; scaled_dot_product_attention's backward at the same shape (yardstick) "
+              f"{t_sdpa:.3f} ms of device time")
+    s = MOE_PREFILL_SHAPE
+    for dt in (torch.float32, torch.bfloat16):
+        x, w1, wg, w2 = moe_inputs(s, dt, seed=23)
+        rows = moe_rows(x, seed=23)  # NaN and 1e4 planted past rows[e]
+        cot = torch.randn_like(x)
+        kernel = lambda x_, a, b, c: moe_ops.moe_gemm_fused(x_, a, b, c, rows)  # noqa: E731
+        _, want = _grads_of(lambda x_, a, b, c: moe_gemm_plain(x_, a, b, c, rows), (x, w1, wg, w2), cot)
+        _, got = _grads_of(kernel, (x, w1, wg, w2), cot)
+        rel = _backward_rel(got, want)
+        dead = torch.arange(s["C"], device="cuda")[None, :] >= rows[:, None]
+        if not rel <= BACKWARD_REL or torch.count_nonzero(got[0][dead]).item():
+            fail(f"moe_gemm backward ({dt}): relative L2 {rel:.3e} against autograd through the plain version "
+                 f"(bound {BACKWARD_REL}), or dx past rows[e] not zero")
+        plain = moe_ops.moe_gemm_plain
+        with _replaced(moe_ops, "moe_gemm_plain", lambda x_, a, b, c, rows_=None: plain(x_, a, b, c, None)):
+            frel = _backward_rel(_grads_of(kernel, (x, w1, wg, w2), cot)[1], want)
+        if frel <= BACKWARD_REL:
+            fail(f"control: moe_gemm backward with rows ignored passes the bound ({frel:.3e})")
+        print(f"[lm-backward] moe_gemm x {tuple(x.shape)} F={s['F']} {dt} with rows ({int(rows.sum())} rows hold a "
+              f"slot; NaN and 1e4 past them): dx, dw1, dwg, dw2 vs autograd through the plain version, worst relative "
+              f"L2 {rel:.3e} (bound {BACKWARD_REL}), dx past rows exactly zero; control with rows ignored in the "
+              f"backward {frel:.3e} (caught)")
+    x, w1, wg, w2 = moe_inputs(s, torch.bfloat16, seed=24)
+    rows = torch.full((s["E"],), s["C"] - 1, dtype=torch.int32, device="cuda")
+    out["moe_gemm"], host_ms = _timed_backward_ms(lambda x_, a, b, c: moe_ops.moe_gemm_fused(x_, a, b, c, rows),
+                                                  (x, w1, wg, w2), torch.randn_like(x))
+    print(f"[lm-backward] moe_gemm bf16 backward per layer at [{s['E']}, {s['C']}, {s['d']}] x {s['F']} (the plain "
+          f"version's fp32 recompute and its autograd): {out['moe_gemm']:.3f} ms of device time, {host_ms:.3f} ms from "
+          "the call to its end, medians of 5")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_environment()
@@ -2517,8 +2852,10 @@ def main():
     flash_launches, flash_routes = phase_lm_serve(lm_params, lm_cfg)
     phase_lm_model_paths(lm_params, lm_cfg)
     phase_lm_bf16_paths(lm_params, lm_cfg)
+    phase_lm_step_paths(lm_cfg, lm_params, LM_PATHS_LAYERS, "a")
+    lm_box = [lm_params]  # the trainer copies the masters; this copy goes once it has
     del lm_params
-    torch.cuda.empty_cache()
+    dense_train = phase_lm_train(lm_cfg, "a", lm_box, "")
     moe_err = phase_moe_parity()
     moe_cfg = moe_config()
     t0 = time.perf_counter()
@@ -2537,11 +2874,26 @@ def main():
         moe_params, moe_cfg)
     phase_moe_model_paths(moe_params, moe_cfg)
     phase_moe_bf16_paths(moe_params, moe_cfg)
+    train_cfg = dataclasses.replace(moe_cfg, num_layers=MOE_TRAIN_LAYERS)
+    phase_lm_step_paths(train_cfg, moe_params, MOE_TRAIN_LAYERS, "b")
+    moe_box = [_cut_layers(moe_params, MOE_TRAIN_LAYERS)]
     del moe_params
-    torch.cuda.empty_cache()
+    moe_train = phase_lm_train(train_cfg, "b", moe_box,
+                               f" of 48 (cut: 16 B of training state a parameter is 49.8 GB at {MOE_TRAIN_LAYERS} "
+                               "layers, 70 GB at 6 before activations, 90 GB at the serving phase's 8)")
+    backward_ms = phase_lm_backward()
     records.append(phase_flash_timing(flash_launches + moe_flash_launches,
                                       {r: flash_routes[r] + moe_flash_routes[r] for r in flash_routes}, flash_err))
     records.append(phase_moe_timing(moe_launches, moe_routes, moe_err, prefill_buf, decode_buf))
+    # the training runs' launches (phases 19-20, steps 1-6 each, every one on the wgmma route)
+    for rec, name, train in ((records[-2], "flash_attn", dense_train["flash_attn"] + moe_train["flash_attn"]),
+                             (records[-1], "moe_gemm", moe_train["moe_gemm"])):
+        rec["launches"] += train
+        rec["launches_by_route"] = dict(rec["launches_by_route"], wgmma=rec["launches_by_route"]["wgmma"] + train)
+        rec["train_launches"] = train
+        rec["train_backward_ms"] = {k: v for k, v in backward_ms.items() if k.startswith(name)}
+        print(f"[timing] {name}: {train} launches in the LM training runs (phases 19-20), all on the wgmma route; "
+              f"{rec['launches']} on the main paths in all")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())

@@ -37,6 +37,12 @@ MoE LM families under ``full_kv`` and ``window``.
 
 Every validator of the JAX plan is kept.
 
+The dense and MoE LM families train on a plan with no grid only
+(:func:`check_lm_plan`): every leaf whole on the one process.  On a grid the
+JAX package computes the MoE load-balance statistics and the expert
+capacity over the global batch, which a rank holding a block of the rows
+does not see; that layout is ROADMAP queue 1 item 4(d).
+
 :meth:`ExecutionPlan.placement` places each leaf (per dim, the grid axis
 that shards it, or None): the JAX rule on the tensor-parallel layouts,
 nothing sharded on the others, where each rank holds the whole tree.
@@ -178,6 +184,19 @@ def _placed_leaves(params, placed) -> list:
     out: list = []
     tree_map(lambda _, p: out.append(p), params, placed)
     return out
+
+
+LM_GRID_ITEM = "ROADMAP queue 1 item 4(d)"
+
+
+def check_lm_plan(plan, cfg) -> None:
+    """Raise unless ``plan`` can train ``cfg``: an LM (dense or MoE family)
+    trains only on a plan with no grid."""
+    if cfg.family != "seq2seq" and plan.mesh is not None:
+        raise NotImplementedError(
+            f"training {cfg.name} (the {cfg.family} family) on a grid is not ported yet ({LM_GRID_ITEM}): the MoE "
+            "load-balance statistics and expert capacity are global-batch quantities in the JAX package; train it "
+            "with no --mesh")
 
 
 @dataclass(frozen=True)
@@ -442,12 +461,17 @@ class ExecutionPlan:
 
     @_for_config
     def placement(self, cfg) -> dict:
-        """The placement tree of ``cfg``'s seq2seq parameters: for each leaf,
-        per dim, the grid axis that shards it or None.  The JAX rule
+        """The placement tree of ``cfg``'s parameters: for each leaf, per
+        dim, the grid axis that shards it or None.  The JAX rule
         (``stg.param_placement``) on the tensor-parallel layouts; nothing
-        sharded on the others."""
+        sharded on the others.  An LM's on a plan with no grid (nothing
+        sharded); on a grid it raises (:func:`check_lm_plan`)."""
         from repro_torch.models import seq2seq as s2s  # local: avoid an import cycle
+        from repro_torch.models import transformer as tfm
 
+        if cfg.family != "seq2seq":
+            check_lm_plan(self, cfg)
+            return stg.map_shapes(lambda shape: (None,) * len(shape), tfm.param_shapes(cfg))
         shapes = s2s.param_shapes(cfg)
         if not self.tensor_parallel:
             return stg.map_shapes(lambda shape: (None,) * len(shape), shapes)

@@ -1,2 +1,8 @@
-"""Data pipeline: synthetic translation corpus, bucketing, batching."""
-from repro_torch.data.pipeline import MTBatchIterator, SyntheticMTTask, pad_to  # noqa: F401
+"""Data pipeline: synthetic translation and LM corpora, bucketing, batching."""
+from repro_torch.data.pipeline import (  # noqa: F401
+    LMBatchIterator,
+    MTBatchIterator,
+    SyntheticLMTask,
+    SyntheticMTTask,
+    pad_to,
+)

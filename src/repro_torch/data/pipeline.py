@@ -1,13 +1,17 @@
-"""Synthetic translation corpus and batching (the port's copy of the MT half
-of ``repro/data/pipeline.py``; numpy only).
+"""Synthetic corpora and batching (the port's copy of
+``repro/data/pipeline.py``; numpy only).
 
 No external datasets are used: :class:`SyntheticMTTask` is a deterministic
 "translation" whose target is the reversed source passed through an affine
 token permutation, with variable sentence lengths, so a seq2seq model must
 learn alignment (reversal) and a token mapping.  :class:`MTBatchIterator`
 length-buckets sentences, pads them to the bucket ceiling and emits
-fixed-shape batches, as OpenNMT does.  The same seed gives the same arrays as
-the JAX package's iterator.
+fixed-shape batches, as OpenNMT does.  :class:`SyntheticLMTask` is a random
+sparse Markov chain over the vocabulary (each token has ``branching``
+successors with Zipf weights), so an LM's loss falls toward the chain's
+entropy floor; :class:`LMBatchIterator` cuts it into fixed-shape next-token
+batches.  The same seed gives the same arrays as the JAX package's
+iterators.
 """
 from __future__ import annotations
 
@@ -56,6 +60,34 @@ class SyntheticMTTask:
         return srcs, tgts
 
 
+@dataclass
+class SyntheticLMTask:
+    vocab_size: int
+    branching: int = 32  # successors per state; smaller -> lower entropy floor
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        v = self.vocab_size
+        self._succ = rng.integers(0, v, size=(v, self.branching)).astype(np.int32)
+        w = 1.0 / np.arange(1, self.branching + 1)  # Zipf-like successor weights
+        self._probs = w / w.sum()
+
+    def sample_tokens(self, rng: np.random.Generator, batch: int, seq_len: int) -> np.ndarray:
+        """[batch, seq_len + 1] int32 walks of the chain."""
+        toks = np.empty((batch, seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab_size, size=batch)
+        for i in range(seq_len):
+            choice = rng.choice(self.branching, size=batch, p=self._probs)
+            toks[:, i + 1] = self._succ[toks[:, i], choice]
+        return toks
+
+    @property
+    def entropy_floor(self) -> float:
+        p = self._probs
+        return float(-(p * np.log(p)).sum())
+
+
 # ---------------------------------------------------------------------------
 # batch iterators
 # ---------------------------------------------------------------------------
@@ -88,4 +120,26 @@ class MTBatchIterator:
             tgt_out=tgt,
             src_mask=(src != PAD),
             tgt_mask=(tgt != PAD),
+        )
+
+
+class LMBatchIterator:
+    """Fixed-shape LM batches: dict(tokens, labels, mask), labels the tokens
+    shifted by one."""
+
+    def __init__(self, task: SyntheticLMTask, batch_size: int, seq_len: int, seed: int = 0):
+        self.task = task
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        toks = self.task.sample_tokens(self.rng, self.batch_size, self.seq_len)
+        return dict(
+            tokens=toks[:, :-1],
+            labels=toks[:, 1:],
+            mask=np.ones((self.batch_size, self.seq_len), bool),
         )

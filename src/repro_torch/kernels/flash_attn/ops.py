@@ -1,4 +1,4 @@
-"""Public wrappers of the flash attention forward.
+"""Public wrappers of flash attention.
 
 * :func:`flash_attention_fused` takes the kernel layout (q [BH, S, D], k/v
   [BH / group, T, D]).  On CUDA tensors it launches one of the hand-written
@@ -8,7 +8,12 @@
   ``flash_attention_fused.launches_by_route``; on CPU tensors it runs the
   plain version (``ref.py``).  A route that does not fit the inputs raises,
   on either device; any other input raises; there is no fallback from a
-  kernel.
+  kernel.  It is differentiable: the backward recomputes the forward through
+  the plain version in fp32, on blocks of ``BACKWARD_BLOCK`` rows and keys
+  (the JAX model's training chunks), and takes its grads (dq, dk, dv in the
+  inputs' dtypes), as the JAX package's model trains on its plain chunked
+  attention (its Pallas wrapper has no VJP).  Only forward launches are
+  counted.
 * :func:`flash_attention` takes the model layout of
   ``repro/models/attention.py::attend``: q grouped [B, S, KV, G, D] or flat
   [B, S, H, 1, D], k/v [B, T, KV, D], and returns q's layout.  A flat q is
@@ -33,6 +38,10 @@ _MAX_GRID_Y = 65535  # one grid row per (batch, head)
 #   "mma":   bf16, D a multiple of 16 (mma.sync tensor cores)
 #   "fma":   fp32 or bf16, any D (fp32 FMA)
 ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}
+# the recompute backward's q and kv blocks: the JAX model trains on chunks of 1024 (RunCtx.q_chunk and
+# kv_chunk); at S=2048 the plain version then runs 3 block pairs a head group, not 36 of 256, so the host
+# enqueues a twelfth of the small ops (with 256 the LM training step waits on the host)
+BACKWARD_BLOCK = 1024
 
 
 def _library():
@@ -122,20 +131,38 @@ def _launch(q, k, v, causal: bool, window, group: int, route: str):
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, group, route):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, group=group)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, **ctx.args)
+        return _launch(q, k, v, causal, window, group, route)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_plain(*ins, **ctx.args, block_q=BACKWARD_BLOCK, block_kv=BACKWARD_BLOCK)
+            grads = torch.autograd.grad(out, ins, do)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None, None, None, None)
+
+
 def flash_attention_fused(q, k, v, *, causal: bool = True, window=None, group: int = 1, route=None):
     """q [BH,S,D], k/v [BH/group,T,D] -> [BH,S,D] in q's dtype (kernel layout).
     ``route`` None runs :func:`pick_route`'s kernel: bf16 at D = 64 or 128 the
     wgmma kernel, bf16 at other multiples of 16 the mma.sync kernel, fp32 and
     other D the fp32-FMA kernel (all hand-written).  A named route that does
-    not fit q's dtype and D raises."""
+    not fit q's dtype and D raises.  Differentiable through the recompute
+    backward."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     route = _route(q, route)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, group=group)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention_fused runs on CUDA (kernel) or CPU (plain version), not {q.device}")
-    return _launch(q, k, v, causal, window, group, route)
+    return _FlashAttention.apply(q, k, v, causal, window, group, route)
 
 
 flash_attention_fused.launches = 0
@@ -150,7 +177,7 @@ def reset_launches():
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Model layout: q [B,S,KV,G,D] (grouped) or [B,S,H,1,D] (flat), k/v
-    [B,T,KV,D] -> attention output in q's layout."""
+    [B,T,KV,D] -> attention output in q's layout; differentiable."""
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B,S,KV,G,D], k/v [B,T,KV,D]; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")

@@ -12,7 +12,11 @@ names or the caller's ``route``, and counts the call in
 ``moe_gemm_fused.launches`` and ``moe_gemm_fused.launches_by_route``; on CPU
 tensors it runs the plain version (``ref.py``).  A route that does not fit
 the inputs raises, on either device; any other input raises; there is no
-fallback from a kernel.
+fallback from a kernel.  It is differentiable in x, w1, wg and w2: the
+backward recomputes the forward through the plain version in fp32 and takes
+its grads (in the inputs' dtypes; x's rows past ``rows[e]`` get exactly
+zero), as the JAX package's model trains on its plain expert FFN (its
+Pallas wrapper has no VJP).  Only forward launches are counted.
 """
 from __future__ import annotations
 
@@ -130,6 +134,26 @@ def _launch(x, w1, wg, w2, rows, route):
     return out
 
 
+class _MoeGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, wg, w2, rows, route):
+        ctx.save_for_backward(x, w1, wg, w2, rows)
+        if x.device.type == "cpu":
+            _check_inputs(x, w1, wg, w2, rows)
+            _route(x, w1, route)
+            return moe_gemm_plain(x, w1, wg, w2, rows)
+        return _launch(x, w1, wg, w2, rows, route)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w1, wg, w2, rows = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (x, w1, wg, w2)]
+            out = moe_gemm_plain(*ins, rows)
+            grads = torch.autograd.grad(out, ins, dout)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None, None)
+
+
 def moe_gemm_fused(x, w1, wg, w2, rows=None, *, route=None):
     """x [E,C,d], w1/wg [E,d,F], w2 [E,F,d] -> [E,C,d] in x's dtype: each
     expert's gated FFN over its rows; with ``rows`` (int32 [E]) over its
@@ -138,14 +162,11 @@ def moe_gemm_fused(x, w1, wg, w2, rows=None, *, route=None):
     "decode" pair at C <= 16 and the "wgmma" pair above; bf16 at other
     multiples of 8 the "mma" pair; fp32 and other widths the "fma" pair
     (all hand-written; every route but "fma" rounds ``h`` to bf16 between
-    the products).  A named route that does not fit raises."""
-    if x.device.type == "cpu":
-        _check_inputs(x, w1, wg, w2, rows)
-        _route(x, w1, route)
-        return moe_gemm_plain(x, w1, wg, w2, rows)
-    if x.device.type != "cuda":
+    the products).  A named route that does not fit raises.  Differentiable
+    in x and the weights through the recompute backward."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"moe_gemm_fused runs on CUDA (kernel) or CPU (plain version), not {x.device}")
-    return _launch(x, w1, wg, w2, rows, route)
+    return _MoeGemm.apply(x, w1, wg, w2, rows, route)
 
 
 moe_gemm_fused.launches = 0

@@ -1,8 +1,10 @@
 """Training launcher of the port: the paper's seq2seq model, on one card or
-on a grid of ranks.
+on a grid of ranks, and the dense and MoE LMs on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch seq2seq-rnn --steps 200 --batch 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch seq2seq-rnn --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --device cpu --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --batch 4 --seq 2048 --steps 6
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
         --num-layers 4 --device cpu --strategy hybrid --pipeline --mesh test --micro-batches 2 --batch 16
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
@@ -11,9 +13,15 @@ on a grid of ranks.
         --device cpu --input-feeding --strategy hybrid --mesh test --grid 1x2 --batch 16
 
 Weights are random, from the port's initializer and ``--seed``; batches come
-from ``SyntheticMTTask`` through ``MTBatchIterator``, as in
-``repro.launch.train``; the optimizer is Adam.  Prints the same config line
-and ``step N  loss ...  tok/s ...`` lines (rank 0 only on a grid).
+from ``SyntheticMTTask`` through ``MTBatchIterator`` (seq2seq), or from
+``SyntheticLMTask(V, branching=16)`` through ``LMBatchIterator`` at ``--seq``
+tokens (the LMs), as in ``repro.launch.train``; the optimizer is Adam.
+Prints the same config line and ``step N  loss ...  tok/s ...`` lines (rank
+0 only on a grid).  An LM trains with no grid: ``--mesh`` or ``--pipeline``
+with an LM arch exits naming ROADMAP queue 1 item 4(d), as does an LM whose
+training state (fp32 masters, grads and Adam's two moments: 16 B a
+parameter) exceeds one card (the full ``qwen3-moe-30b-a3b``: cut its depth
+with ``--num-layers``).
 
 The JAX launcher's multi-device flags: ``--strategy``, ``--mesh`` (``none``;
 ``test``, the 2 x 4 grid of ``make_test_mesh`` or the ``--grid DxM`` one,
@@ -39,12 +47,18 @@ import dataclasses
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core.plan import COMPUTE_DTYPES, STAGE_KERNELS, ExecutionPlan
+import math
+
+import torch
+
+from repro_torch.core.plan import COMPUTE_DTYPES, LM_GRID_ITEM, STAGE_KERNELS, ExecutionPlan
 from repro_torch.core.schedule import SCHEDULES
-from repro_torch.core.strategy import Strategy
-from repro_torch.data import MTBatchIterator, SyntheticMTTask
+from repro_torch.core.strategy import Strategy, map_shapes
+from repro_torch.data import LMBatchIterator, MTBatchIterator, SyntheticLMTask, SyntheticMTTask
+from repro_torch.launch.serve import ONE_CARD_BYTES
 from repro_torch.models import seq2seq as s2s
-from repro_torch.models.common import resolve_device, tree_leaves
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import resolve_device
 from repro_torch.optim import adam
 from repro_torch.train import Trainer
 
@@ -73,6 +87,27 @@ def _grid_shape(text: str) -> tuple:
     return d, m
 
 
+def _n_params(cfg) -> int:
+    """The whole model's parameter count, from its shapes."""
+    sizes = []
+    shapes = s2s.param_shapes(cfg) if cfg.family == "seq2seq" else tfm.param_shapes(cfg)
+    map_shapes(lambda shape: sizes.append(math.prod(shape)), shapes)
+    return sum(sizes)
+
+
+def _check_lm_state_fits(cfg, device) -> None:
+    """Exit before any allocation when an LM's training state (fp32 masters,
+    grads, Adam's m and v: 16 B a parameter) exceeds one card."""
+    n = _n_params(cfg)
+    dev = resolve_device(device)
+    cap = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else ONE_CARD_BYTES
+    if 16 * n > cap:
+        raise SystemExit(f"--arch {cfg.name}: {n:,} parameters x 16 B of training state (fp32 masters, grads, Adam m "
+                         f"and v) = {16 * n / 1e9:.0f} GB, more than the "
+                         f"{'card' if dev.type == 'cuda' else 'one-card budget'}'s {cap / 1e9:.0f} GB; cut the depth "
+                         f"with --num-layers, or wait for the layout over several cards ({LM_GRID_ITEM})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="seq2seq-rnn")
@@ -84,10 +119,11 @@ def main(argv=None):
     ap.add_argument("--input-feeding", action="store_true",
                     help="baseline / HybridNMTIF: feed Hc_{t-1} into the first decoder layer")
     ap.add_argument("--num-layers", type=int, default=None,
-                    help="override the config's encoder/decoder depth (the pipeline needs it divisible by the "
-                         "model axis: the smoke config's 2 layers do not split over --mesh test's 4 stages)")
+                    help="override the config's depth (seq2seq: the pipeline needs it divisible by the model axis: "
+                         "the smoke config's 2 layers do not split over --mesh test's 4 stages)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=64, help="LM archs: tokens per sequence")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--pipeline", action="store_true", help="wavefront pipeline backbone")
     ap.add_argument("--micro-batches", type=int, default=1,
@@ -119,6 +155,14 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, input_feeding=True)
     if args.grid is not None and args.mesh != "test":
         raise SystemExit("--grid sets the shape of --mesh test")
+    lm = cfg.family != "seq2seq"
+    if lm:
+        if args.mesh != "none" or args.pipeline:
+            raise SystemExit(f"--arch {args.arch}: training an LM on a grid is not ported yet ({LM_GRID_ITEM}); "
+                             "run it without --mesh and --pipeline")
+        if args.input_feeding:
+            raise SystemExit("--input-feeding applies to the seq2seq arch")
+        _check_lm_state_fits(cfg, args.device)
     grid = make_mesh(args.mesh, args.pipeline, args.device, args.grid)
     try:
         plan = ExecutionPlan(
@@ -142,13 +186,17 @@ def main(argv=None):
             say(f"warning: --schedule={args.schedule} has no effect without "
                 "the wavefront pipeline (needs --pipeline and model/hybrid)")
 
-        params = s2s.init_seq2seq(args.seed, cfg, device=device)
-        # repro.launch.train's task at its default --seq 64: sentences of 4-16 tokens
-        task = SyntheticMTTask(vocab_size=cfg.vocab_size, min_len=4, max_len=16)
-        it = MTBatchIterator(task, batch_size=args.batch, seed=args.seed)
-        trainer = Trainer(cfg, adam(lr=args.lr), it, plan=plan, params=params, seed=args.seed, device=device)
+        if lm:
+            task = SyntheticLMTask(vocab_size=cfg.vocab_size, branching=16)
+            it = LMBatchIterator(task, batch_size=args.batch, seq_len=args.seq, seed=args.seed)
+        else:
+            # repro.launch.train's task: sentences of 4 to min(16, --seq) tokens
+            task = SyntheticMTTask(vocab_size=cfg.vocab_size, min_len=4, max_len=min(16, args.seq))
+            it = MTBatchIterator(task, batch_size=args.batch, seed=args.seed)
+        # the trainer initializes the weights from --seed (init_seq2seq or init_lm) on the device
+        trainer = Trainer(cfg, adam(lr=args.lr), it, plan=plan, seed=args.seed, device=device)
 
-        n_params = sum(p.numel() for p in tree_leaves(params))
+        n_params = _n_params(cfg)
         mp_note = f" loss_scale={plan.loss_scale_init:g}" if plan.fp16(cfg) else ""
         shape = "x".join(map(str, grid.shape)) if grid is not None else "none"
         say(

@@ -1,47 +1,57 @@
 """Decoder-only transformer of the dense and MoE families (port of the
-attention-block path of ``repro/models/transformer.py``): prefill and
-decode.
+attention-block path of ``repro/models/transformer.py``): training, prefill
+and decode.
 
 Layers are grouped by the architecture's block pattern
 (``cfg.layer_group``); each position in the group has its weights stacked
 ``[G, ...]`` with ``G = num_layers // layer_group``, as in the JAX package,
 and the trunk is a Python loop over the groups (the JAX package scans).
+Each stacked leaf is split into its G layers once per forward
+(:func:`layer_weights`), so under autograd the layers' grads are stacked
+once per leaf, not added into a zero stack once per layer.
 
 Modes:
+  train    full-sequence forward + CE loss (:func:`forward_train`): each
+           layer group under ``torch.utils.checkpoint`` when ``ctx.remat``
+           (the JAX package's ``jax.checkpoint`` per group), and the CE over
+           sequence chunks, each checkpointed, so no [B, S, V] fp32 logits
+           are stored (:func:`chunked_ce`)
   prefill  full-sequence forward; emits each layer's KV cache
   decode   one token (or a chunk) against the carried caches, which it
            updates in place
 
 A block's FFN is the dense MLP or, on the layers ``cfg.is_moe_layer``
 names, the mixture of experts (``models/moe.py``, meshless global
-dispatch).  Training of the LM families, the SSM/xLSTM blocks,
-cross-attention, frontends and the mesh fields of ``RunCtx`` (and with them
-the expert-parallel MoE path) are not ported yet.
+dispatch), whose load-balance loss the trunk sums in train mode.  The
+SSM/xLSTM blocks, cross-attention, frontends and the mesh fields of
+``RunCtx`` (and with them the expert-parallel MoE path) are not ported yet.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp, moe
 from repro_torch.models.common import Initializer, resolve_device, tree_map
 
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 class RunCtx(NamedTuple):
-    mode: str  # "prefill" | "decode"
+    mode: str  # "train" | "prefill" | "decode"
     window: Optional[int] = None  # sliding window
     q_chunk: int = 1024
     kv_chunk: int = 1024
-    # "cuda": prefill attention on kernels/flash_attn and the MoE blocks'
-    # expert FFN on kernels/moe_gemm (each the CUDA kernel on the card, its
-    # plain version on the host); "torch": chunked_attention and
-    # moe.expert_ffn
+    # "cuda": train/prefill attention on kernels/flash_attn and the MoE
+    # blocks' expert FFN on kernels/moe_gemm (each the CUDA kernel on the
+    # card, its plain version on the host; both differentiable); "torch":
+    # chunked_attention and moe.expert_ffn
     kernel: str = "cuda"
+    remat: bool = True  # train: recompute each layer group in the backward
 
 
 # ---------------------------------------------------------------------------
@@ -56,14 +66,15 @@ def block_pattern(cfg: ModelConfig) -> list:
     kinds = []
     for pos in range(cfg.layer_group):
         if not cfg.is_attn_layer(pos):
-            raise NotImplementedError(f"{cfg.name}: non-attention blocks are not ported yet")
+            raise NotImplementedError(f"{cfg.name}: non-attention blocks are not ported yet "
+                                      "(ROADMAP queue 1 item 6(c))")
         kinds.append("attn")
     return kinds
 
 
 def init_block(ini: Initializer, path: str, cfg: ModelConfig, kind: str, use_moe: bool = False) -> dict:
     if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1 item 6(c))")
     p = {
         "norm1": common.init_norm(ini, path + ".n1", cfg.d_model, cfg.norm),
         "attn": attn.init_attention(ini, path + ".attn", cfg),
@@ -82,7 +93,7 @@ def init_lm(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"the {cfg.family!r} family's LM is not ported yet")
     if cfg.learned_pos_emb:
-        raise NotImplementedError("learned position embeddings come with the audio family")
+        raise NotImplementedError("learned position embeddings come with the audio family (ROADMAP queue 1 item 6(d))")
     ini = Initializer(seed, device=resolve_device(device))
     G = cfg.num_layers // cfg.layer_group
     params: dict = {"embed": common.init_embedding(ini, "embed", cfg.vocab_size, cfg.emb_size)}
@@ -97,6 +108,32 @@ def init_lm(seed: int, cfg: ModelConfig, *, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": ini.normal("lm_head", (cfg.d_model, cfg.vocab_size))}
     return params
+
+
+class _Shapes:
+    """An initializer that returns each parameter's shape instead of its
+    values (:func:`param_shapes`)."""
+
+    def normal(self, path, shape, scale=None):
+        return tuple(shape)
+
+    embedding = zeros = ones = normal
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The whole shape of every parameter of :func:`init_lm`, in its tree
+    (leaves are tuples), without allocating any."""
+    ini = _Shapes()
+    G = cfg.num_layers // cfg.layer_group
+    stack = lambda node: ({k: stack(v) for k, v in node.items()} if isinstance(node, dict)  # noqa: E731
+                          else (G,) + node)
+    tree: dict = {"embed": common.init_embedding(ini, "embed", cfg.vocab_size, cfg.emb_size)}
+    tree["blocks"] = [stack(init_block(ini, f"blk.p{pos}", cfg, kind, cfg.is_moe_layer(pos)))
+                      for pos, kind in enumerate(block_pattern(cfg))]
+    tree["final_norm"] = common.init_norm(ini, "fn", cfg.d_model, cfg.norm)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": (cfg.d_model, cfg.vocab_size)}
+    return tree
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -129,9 +166,10 @@ def cast_params(params: dict, cfg: ModelConfig) -> dict:
 
 
 def _self_attention(p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, length):
-    """cache: None (prefill) or (k [B,C,KV,D], v) (decode); ``rope``: the
-    positions' (cos, sin) tables; ``length`` is the absolute position of the
-    incoming token(s).  Returns (y, cache_kv)."""
+    """cache: None (train, prefill) or (k [B,C,KV,D], v) (decode); ``rope``:
+    the positions' (cos, sin) tables; ``length`` is the absolute position of
+    the incoming token(s).  Returns (y, cache_kv); train mode keeps no cache
+    (None)."""
     q, k, v = attn.project_qkv(p, cfg, x)
     q = common.apply_rope_tables(q, rope, head_ndims=2)
     k = common.apply_rope_tables(k, rope)
@@ -150,6 +188,8 @@ def _self_attention(p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, leng
     o = attn.attend(q, k, v, causal=True, window=ctx.window, q_chunk=ctx.q_chunk, kv_chunk=ctx.kv_chunk,
                     kernel=ctx.kernel)
     y = attn.output_proj(p, cfg, o)
+    if ctx.mode == "train":
+        return y, None
     W = ctx.window
     if W is not None and k.shape[1] > W:  # keep only the rolling window:
         S = k.shape[1]  # slot s holds the position p with p % W == s
@@ -170,17 +210,17 @@ def _ffn(p_block: dict, cfg: ModelConfig, x, ctx: RunCtx):
 
 
 def apply_block(kind: str, p: dict, cfg: ModelConfig, x, ctx: RunCtx, cache, rope, length=None):
-    """Returns (x, new_cache); ``rope`` is :func:`common.rope_tables` of the
-    tokens' positions.  The MoE load-balance loss is dropped: only training
-    reads it, and the LM's training is not ported yet."""
+    """Returns (x, new_cache, aux): ``aux`` is the MoE load-balance loss of
+    this block (0.0 for a dense one); ``rope`` is :func:`common.rope_tables`
+    of the tokens' positions."""
     if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet (ROADMAP queue 1 item 6(c))")
     h = common.apply_norm(p["norm1"], x, cfg.norm)
     y, new_cache = _self_attention(p["attn"], cfg, h, ctx, cache, rope, length)
     x = x + y
     h2 = common.apply_norm(p["norm2"], x, cfg.norm)
-    y2, _aux = _ffn(p, cfg, h2, ctx)
-    return x + y2, new_cache
+    y2, aux = _ffn(p, cfg, h2, ctx)
+    return x + y2, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -209,31 +249,68 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, window: Optional[int
     return LMCache(entries=tuple(entries), length=torch.zeros((), dtype=torch.int64, device=dev))
 
 
+def layer_weights(blocks: list, G: int) -> list:
+    """The stacked [G, ...] weights of each position in the layer group as
+    G per-layer trees ([g][pos] -> weights): one ``torch.unbind`` per leaf,
+    whose backward stacks the G layers' grads once (indexing ``a[g]`` per
+    layer would add each layer's grad into a zero stack of the whole leaf)."""
+    per_pos = [tree_map(lambda a: torch.unbind(a, 0), blk) for blk in blocks]
+
+    def take(node, g):
+        if isinstance(node, dict):
+            return {k: take(v, g) for k, v in node.items()}
+        return node[g]
+
+    return [[take(tree, g) for tree in per_pos] for g in range(G)]
+
+
+def _train_group(kinds: list, cfg: ModelConfig, ctx: RunCtx, rope, x, weights: list):
+    """One layer group in train mode: (x, summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, kind in enumerate(kinds):
+        x, _, a = apply_block(kind, weights[pos], cfg, x, ctx, None, rope)
+        aux = aux + a
+    return x, aux
+
+
 def run_trunk(params: dict, cfg: ModelConfig, x, ctx: RunCtx, cache: Optional[LMCache], positions):
-    """x [B,S,d] -> (x, new_cache).  Prefill builds the caches (``cache`` is
-    an empty LMCache, or None for no caches); decode consumes ``cache`` and
-    writes its entries in place."""
+    """x [B,S,d] -> (x, new_cache, aux).  Train mode sums the blocks' MoE
+    load-balance losses into ``aux`` (fp32; 0 for a dense model), each layer
+    group checkpointed when ``ctx.remat``; prefill builds the caches
+    (``cache`` is an empty LMCache, or None for no caches); decode consumes
+    ``cache`` and writes its entries in place."""
     if ctx.mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {ctx.mode!r}")
     kinds = block_pattern(cfg)
-    consume = cache is not None and ctx.mode == "decode"
-    length = cache.length if cache is not None else None
     G = cfg.num_layers // cfg.layer_group
     rope = common.rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.partial_rotary)
+    layers = layer_weights(params["blocks"], G)
+    if ctx.mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(G):
+            if ctx.remat:
+                # the forward draws no random numbers: no RNG state to keep for the recompute
+                x, a = checkpoint(_train_group, kinds, cfg, ctx, rope, x, layers[g], use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = _train_group(kinds, cfg, ctx, rope, x, layers[g])
+            aux = aux + a
+        return x, None, aux
+    consume = cache is not None and ctx.mode == "decode"
+    length = cache.length if cache is not None else None
     built = [[] for _ in kinds]
     for g in range(G):
         for pos, kind in enumerate(kinds):
-            weights = tree_map(lambda a: a[g], params["blocks"][pos])
             layer_cache = (cache.entries[pos][0][g], cache.entries[pos][1][g]) if consume else None
-            x, nc = apply_block(kind, weights, cfg, x, ctx, layer_cache, rope, length)
+            x, nc, _ = apply_block(kind, layers[g][pos], cfg, x, ctx, layer_cache, rope, length)
             if not consume:
                 built[pos].append(nc)
     if cache is None:
-        return x, None
+        return x, None, None
     if consume:
-        return x, LMCache(entries=cache.entries, length=cache.length)
+        return x, LMCache(entries=cache.entries, length=cache.length), None
     entries = tuple((torch.stack([kv[0] for kv in col]), torch.stack([kv[1] for kv in col])) for col in built)
-    return x, LMCache(entries=entries, length=cache.length)
+    return x, LMCache(entries=entries, length=cache.length), None
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +324,63 @@ def lm_head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]["w"]
 
 
+def _ce_chunk(head_w, xc, lc, mc):
+    """Summed masked NLL of one sequence chunk, logits in fp32."""
+    logits = common.unembed(head_w, xc)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return ((lse - gold) * mc.float()).sum()
+
+
+def chunked_ce(x, head_w, labels, mask, chunk: int = 1024):
+    """Masked-mean CE of x [B,S,d] through the head [d,V] -> (loss, denom),
+    without storing [B,S,V] fp32 logits for the whole sequence: the sequence
+    is cut into the smallest number of equal chunks of at most ``chunk``
+    positions (S need not be a multiple of ``chunk``), and each chunk's
+    logits are recomputed in the backward (the JAX package's rule)."""
+    B, S, _ = x.shape
+    if S <= chunk:
+        return common.softmax_cross_entropy(common.unembed(head_w, x), labels, mask)
+    n = -(-S // chunk)
+    while S % n:
+        n += 1
+    c = S // n
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        part = slice(i * c, (i + 1) * c)
+        tot = tot + checkpoint(_ce_chunk, head_w, x[:, part], labels[:, part], mask[:, part], use_reentrant=False,
+                               preserve_rng_state=False)
+        cnt = cnt + mask[:, part].float().sum()
+    denom = torch.clamp(cnt, min=1.0)
+    return tot / denom, denom
+
+
+def forward_train(params: dict, cfg: ModelConfig, tokens, labels, mask, *, ctx: RunCtx = RunCtx(mode="train")):
+    """tokens, labels, mask [B, S] -> (loss, {"denom", "aux", "ce"}): the
+    masked-mean next-token CE (fp32 logits), plus, for an MoE model,
+    ``router_aux_weight`` times the load-balance loss summed over the layers
+    and divided by the number of layer groups."""
+    if ctx.mode != "train":
+        raise ValueError(f"forward_train runs in mode 'train', got {ctx.mode!r}")
+    x = common.embed(params["embed"], tokens, compute_dtype(cfg))
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    x, _, aux = run_trunk(params, cfg, x, ctx, None, positions)
+    x = common.apply_norm(params["final_norm"], x, cfg.norm)
+    ce, denom = chunked_ce(x, lm_head_weight(params, cfg), labels, mask)
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / max(cfg.num_layers // cfg.layer_group, 1)
+    return loss, {"denom": denom, "aux": aux, "ce": ce}
+
+
 def forward_prefill(params: dict, cfg: ModelConfig, tokens, *, ctx: RunCtx = RunCtx(mode="prefill")):
     """tokens [B, S] -> (logits at the last position [B, V] fp32, cache)."""
     x = common.embed(params["embed"], tokens, compute_dtype(cfg))
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    x, cache = run_trunk(params, cfg, x, ctx, LMCache(entries=(), length=None), positions)
+    x, cache, _ = run_trunk(params, cfg, x, ctx, LMCache(entries=(), length=None), positions)
     x = common.apply_norm(params["final_norm"], x, cfg.norm)
     logits = common.unembed(lm_head_weight(params, cfg), x[:, -1:])[:, 0]
     return logits, cache._replace(length=torch.tensor(S, device=x.device))
@@ -269,7 +397,7 @@ def forward_decode(params: dict, cfg: ModelConfig, token, cache: LMCache, *, ctx
     s = tokens.shape[1]
     x = common.embed(params["embed"], tokens, compute_dtype(cfg))
     positions = (cache.length + torch.arange(s, device=x.device))[None, :]
-    x, new_cache = run_trunk(params, cfg, x, ctx, cache, positions)
+    x, new_cache, _ = run_trunk(params, cfg, x, ctx, cache, positions)
     x = common.apply_norm(params["final_norm"], x, cfg.norm)
     head = lm_head_weight(params, cfg)
     logits = common.unembed(head, x) if all_positions else common.unembed(head, x[:, -1:])[:, 0]

@@ -1,5 +1,10 @@
-"""Training step factory and a small host loop (the port of the seq2seq half
-of ``repro/train/trainer.py``).
+"""Training step factory and a small host loop (the port of
+``repro/train/trainer.py``).
+
+The seq2seq family trains on every plan; the dense and MoE LM families
+(``models/transformer.py::forward_train``: the CE plus the MoE load-balance
+term, remat per layer group) on a plan with no grid (``core/plan.py::
+check_lm_plan``).
 
 :func:`make_train_step` builds the step for a model config and an
 :class:`~repro_torch.core.plan.ExecutionPlan`: forward and backward over the
@@ -21,7 +26,10 @@ through the plan's ``compute_dtype``: the weights stay fp32 masters, the
 model casts them at each use, and their grads come back fp32.  fp16 adds
 dynamic loss scaling held in the train state: an overflowed step leaves
 params and optimizer state as they were and halves the scale.  The step runs
-eagerly; there is no ``jit``.
+eagerly; there is no ``jit``.  ``donate=True`` (the :class:`Trainer`'s, as
+the JAX trainer donates its state) writes each leaf's update into the
+params' and moments' own storage, leaf by leaf, with the same numbers, so a
+step holds one copy of the state where the functional update holds two.
 """
 from __future__ import annotations
 
@@ -35,7 +43,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import strategy as stg
 from repro_torch.core.plan import ExecutionPlan
+from repro_torch.core.plan import check_lm_plan
 from repro_torch.models import seq2seq as s2s
+from repro_torch.models import transformer as tfm
 from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.optim.optimizers import OptState, apply_updates
 
@@ -72,7 +82,8 @@ def init_train_state(params, optimizer, plan: Optional[ExecutionPlan] = None, cf
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """A batch of numpy arrays (``MTBatchIterator``'s) as tensors on ``device``."""
+    """A batch of numpy arrays (``MTBatchIterator``'s or ``LMBatchIterator``'s)
+    as tensors on ``device``."""
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
@@ -142,17 +153,34 @@ def _wait(handles) -> None:
 
 
 def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
-    """(params, batch, generator) -> (loss, {"denom"}), computed in the
-    plan's compute dtype on the plan's ``stage_kernel``.  ``batch`` is the
-    global (micro)batch; each rank computes on its rows (``shard_batch``),
-    through the plan's backbone and phase boundary, and returns its share
-    of the global masked mean (the token count summed over the grid), so
-    the ranks' losses and grads sum to the single-process ones."""
-    if cfg.family != "seq2seq":
-        raise NotImplementedError(f"training the {cfg.family!r} family is not ported yet")
+    """(params, batch, generator) -> (loss, extras), computed in the plan's
+    compute dtype on the plan's ``stage_kernel``.
+
+    seq2seq: extras {"denom"}.  ``batch`` is the global (micro)batch; each
+    rank computes on its rows (``shard_batch``), through the plan's backbone
+    and phase boundary, and returns its share of the global masked mean (the
+    token count summed over the grid), so the ranks' losses and grads sum to
+    the single-process ones.
+
+    dense / MoE LM: ``forward_train`` on batch {"tokens", "labels", "mask"}
+    with ``stage_kernel`` as the attention and expert-FFN path and each
+    layer group recomputed in the backward (remat, as the JAX trainer's
+    default); extras {"denom", "aux"} (the MoE load-balance loss summed over
+    the layers, 0 for a dense model).  No grid (:func:`check_lm_plan`); the
+    generator is unused."""
     resolved = plan.resolve_compute_dtype(cfg)
     if resolved != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=resolved)
+    if cfg.family != "seq2seq":
+        check_lm_plan(plan, cfg)
+        ctx = tfm.RunCtx(mode="train", kernel=plan.stage_kernel)
+
+        def lm_loss_fn(params, batch, generator):
+            del generator
+            loss, extras = tfm.forward_train(params, cfg, batch["tokens"], batch["labels"], batch["mask"], ctx=ctx)
+            return loss, {"denom": extras["denom"], "aux": extras["aux"]}
+
+        return lm_loss_fn
     plan = plan.for_config(cfg)
     sharding = plan.sharding(cfg)
     # under input feeding only a tensor-parallel plan's backbone runs (the encoder's), as the JAX trainer drops it
@@ -276,29 +304,66 @@ def make_grad_fn(cfg: ModelConfig, plan: ExecutionPlan):
     return grads_of
 
 
-def make_train_step(cfg: ModelConfig, optimizer, *, plan: Optional[ExecutionPlan] = None, clip_norm: float = 5.0):
+UPDATE_CHUNK = 1 << 25  # elements of a leaf updated at once in place: bounds the update's temporaries
+
+
+def _update_in_place(optimizer, grads, opt_state: OptState, params, lr_scale, clip_scale) -> OptState:
+    """``optimizer.update`` on the clipped grads and ``apply_updates``, on
+    one slice of UPDATE_CHUNK elements of a leaf at a time, each result
+    written into the storage of the param and moments it replaces (the same
+    elementwise operations, so the same numbers as the functional step; the
+    temporaries are a slice's, not a whole tree's).  Returns the optimizer
+    state, whose moment trees are the old ones, updated."""
+    per_leaf_v = isinstance(opt_state.v, (dict, list, tuple))  # SGD keeps a scalar
+    trees = [params, opt_state.m] + ([opt_state.v] if per_leaf_v else [])
+    new_state = opt_state
+    for g, *leaves in zip(tree_leaves(grads), *(tree_leaves(t) for t in trees)):
+        for g_part, p, m, *v in zip(g.reshape(-1).split(UPDATE_CHUNK),
+                                    *(t.view(-1).split(UPDATE_CHUNK) for t in leaves)):
+            state = OptState(opt_state.step, [m], v if per_leaf_v else opt_state.v)
+            (u,), new_state = optimizer.update([g_part * clip_scale], state, [p], lr_scale)
+            m.copy_(new_state.m[0])
+            if per_leaf_v:
+                v[0].copy_(new_state.v[0])
+            p.add_(u)
+    return OptState(step=new_state.step, m=opt_state.m, v=opt_state.v if per_leaf_v else new_state.v)
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, plan: Optional[ExecutionPlan] = None, clip_norm: float = 5.0,
+                    donate: bool = False):
     """train_step(state, batch, lr_scale, generator) -> (state, metrics).
     ``batch`` holds the global batch's tensors on the params' device (every
     rank of a grid passes the same batch); ``generator`` (on that device, the
     same seed on every rank) drives dropout.  Clipping uses the grid's global
-    norm."""
+    norm.  ``donate``: the step writes the new params and optimizer moments
+    into the state's own tensors (:func:`_update_in_place`) and returns a
+    state holding them; the state passed in must not be read again."""
     plan = plan or ExecutionPlan()
     grads_of = make_grad_fn(cfg, plan)
     sync = grads_of.sync
     fp16 = plan.fp16(cfg)
 
-    def clip(grads):
+    def clip_scale(grads):
         norm = sync.global_norm(grads)
-        scale = torch.clamp(clip_norm / torch.clamp(norm, min=1e-9), max=1.0)
-        return tree_map(lambda g: g * scale, grads), norm
+        return torch.clamp(clip_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+    def update(grads, state: TrainState, lr_scale):
+        """(params, opt_state) after the clipped update; and the grad norm."""
+        scale, norm = clip_scale(grads)
+        if donate:
+            return state.params, _update_in_place(optimizer, grads, state.opt_state, state.params, lr_scale,
+                                                  scale), norm
+        grads = tree_map(lambda g: g * scale, grads)
+        updates, opt_state = optimizer.update(grads, state.opt_state, state.params, lr_scale)
+        return apply_updates(state.params, updates), opt_state, norm
 
     def train_step(state: TrainState, batch: dict, lr_scale: float, generator: Optional[torch.Generator]):
         if not fp16:
             loss, extras, grads = grads_of(state.params, batch, generator)
-            grads, gnorm = clip(grads)
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params, lr_scale)
-            params = apply_updates(state.params, updates)
+            params, opt_state, gnorm = update(grads, state, lr_scale)
             metrics = {"loss": loss, "grad_norm": gnorm, "tokens": extras["denom"]}
+            if "aux" in extras:
+                metrics["moe_aux"] = extras["aux"]
             return TrainState(params=params, opt_state=opt_state, scaling=state.scaling), metrics
 
         # fp16: grads_of scales each microbatch's loss and returns unscaled
@@ -308,16 +373,15 @@ def make_train_step(cfg: ModelConfig, optimizer, *, plan: Optional[ExecutionPlan
         scale = state.scaling.scale
         loss, extras, grads = grads_of(state.params, batch, generator, scale)
         finite = sync.all_finite(grads)
-        grads, gnorm = clip(grads)
         if finite:
-            updates, opt_state = optimizer.update(grads, state.opt_state, state.params, lr_scale)
-            params = apply_updates(state.params, updates)
+            params, opt_state, gnorm = update(grads, state, lr_scale)
             good = state.scaling.good_steps + 1
             grow = bool(good >= plan.loss_scale_growth)
             new_scale = scale * 2.0 if grow else scale
             if grow:
                 good = torch.zeros_like(good)
         else:
+            gnorm = clip_scale(grads)[1]
             params, opt_state = state.params, state.opt_state
             new_scale = torch.clamp(scale * 0.5, min=1.0)
             good = torch.zeros_like(state.scaling.good_steps)
@@ -335,9 +399,11 @@ class Trainer:
     the grid's device) from an iterator of numpy batches, with dropout drawn
     from a ``torch.Generator`` seeded from ``seed``.  On a grid every rank
     runs it on the same batches and only rank 0 logs.  ``params`` (or the
-    seed's) are the whole tree; each rank keeps its blocks of it
+    seed's: ``init_seq2seq``, or ``init_lm`` for the dense and MoE families)
+    are the whole tree; each rank keeps its blocks of it
     (``ExecutionPlan.shard_params``), and its optimizer moments are those
-    blocks' own."""
+    blocks' own.  Its step donates the state (``make_train_step``), so it
+    trains a copy of the ``params`` passed in and leaves them as they are."""
 
     def __init__(self, cfg: ModelConfig, optimizer, train_iter, *, plan: Optional[ExecutionPlan] = None,
                  params=None, clip_norm: float = 5.0, seed: int = 0, device="cuda"):
@@ -345,11 +411,13 @@ class Trainer:
         self.device = plan.mesh.device if plan.mesh is not None else resolve_device(device)
         self.rank = plan.mesh.rank if plan.mesh is not None else 0
         if params is None:
-            params = s2s.init_seq2seq(seed, cfg, device=self.device)
-        else:
-            params = tree_map(lambda t: t.to(self.device), params)
+            init = s2s.init_seq2seq if cfg.family == "seq2seq" else tfm.init_lm
+            params = init(seed, cfg, device=self.device)
+        else:  # a contiguous copy: the step updates the state in place, a flat slice at a time
+            params = tree_map(lambda t: t.detach().to(self.device, copy=True, memory_format=torch.contiguous_format),
+                              params)
         self.plan, self.cfg = plan, cfg
-        self.step_fn = make_train_step(cfg, optimizer, plan=plan, clip_norm=clip_norm)
+        self.step_fn = make_train_step(cfg, optimizer, plan=plan, clip_norm=clip_norm, donate=True)
         params = plan.shard_params(params, cfg)
         self.state = init_train_state(params, optimizer, plan=plan, cfg=cfg)
         self.train_iter = train_iter
@@ -360,7 +428,8 @@ class Trainer:
 
     def run(self, steps: int, log_every: int = 50, log=print):
         """Take ``steps`` steps; every ``log_every`` steps log a line (rank 0)
-        and append the step's loss, grad norm and wall time to ``history``."""
+        and append the step's loss, grad norm and wall time (and an MoE
+        model's load-balance loss, ``moe_aux``) to ``history``."""
         t0 = time.perf_counter()
         tokens = 0.0
         for i in range(steps):
@@ -375,6 +444,8 @@ class Trainer:
                 self.history.append({"step": i + 1, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
                                      "tokens": float(metrics["tokens"]), "step_s": now - ts,
                                      "tok_per_s": tokens / dt})
+                if "moe_aux" in metrics:
+                    self.history[-1]["moe_aux"] = float(metrics["moe_aux"])
                 if self.rank == 0:
                     log(f"step {i+1:5d}  loss {loss:.4f}  tok/s {tokens/dt:,.0f}  lr_scale {self.lr_scale:.3f}")
         return self.state
