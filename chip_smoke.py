@@ -184,7 +184,8 @@ Phases, each printed as it runs; any failure exits nonzero:
     the mma route's kernel, its plain version and
     ``scaled_dot_product_attention`` (the library yardstick, used nowhere in
     the port), at the MoE prefill's call (G=8) against the mma route's
-    kernel and SDPA, and at (b)'s against the mma route's kernel; ``moe_gemm`` at the
+    kernel and SDPA, and at (b)'s against the mma route's kernel and SDPA
+    with the window's causal band as a boolean mask; ``moe_gemm`` at the
     MoE prefill's call on a dense buffer and on a served prefill's layer-0
     buffer with its rows, and at a decode step's call on a dense buffer
     (every expert has a row) and on a served step's buffer with its rows
@@ -220,14 +221,34 @@ Phases, each printed as it runs; any failure exits nonzero:
     the plain version (BACKWARD_REL), dx past ``rows`` exactly zero, with a
     planted fault each that must miss the bound (dk dropped; the backward
     recomputed without ``rows``); each backward's device time per layer, and
-    SDPA's backward beside the attention's (a yardstick).
+    SDPA's backward beside the attention's (a yardstick);
+23. LM training on the grid: (a) the trivial 1 x 1 grid over NCCL:
+    ``qwen3-1.7b`` cut to 8 layers and ``qwen3-moe-30b-a3b`` to 4 (full
+    width, fp32, 2 x 2048 tokens), one step each of DATA, MODEL, HYBRID and
+    HYBRID_OPT against the meshless step (phase 21's bounds); then 4 bf16
+    steps of the full-depth ``qwen3-1.7b`` on HYBRID through ``Trainer``
+    (56 ``flash_attn`` launches a step, all "wgmma"), median step beside the
+    card's name and power limit.  (b) Two ranks on the card over gloo, both
+    models at 2 layers (full width): one fp32 step each of DATA 2 x 1, MODEL,
+    HYBRID and HYBRID_OPT 1 x 2 and HYBRID_OPT 2 x 1 against the meshless
+    step (the MoE's DATA at capacity factor 1.0, where slots drop; the
+    expert-parallel layouts at E / k = 16 on 2 x 1024 tokens, where none
+    can), three
+    planted faults that must miss it (DATA at each rank's own capacity and
+    positions; the load-balance statistics multiplied before their mean; a
+    row-parallel partial not summed); one bf16 step each, every
+    ``flash_attn`` launch on "wgmma" at the rank's head counts and every
+    ``moe_gemm`` launch on "wgmma" with ``rows`` at the dispatch buffer's
+    shape, the first of each held against its plain version, the loss (and
+    the dense model's grads) against the meshless bf16 step's.
+    ``python3 chip_smoke.py --only lm-grid`` runs phases 1, 2 and 23 alone.
 
 Then one JSON line with the kernels' numbers (``launches`` counts the
 launches of the serving runs, the training run, the hybrid phase's and the
-input-feeding phase's bf16 steps, and the LM training runs' steps 1-6, each
-counted from 0 around its run, the hybrid, input-feeding and LM training
-ones also as ``hybrid_launches``, ``input_feeding_launches`` and
-``train_launches``; ``luong_attn`` one record per route on the main path,
+input-feeding phase's bf16 steps, the LM training runs' steps 1-6 and the
+grid phase's bf16 steps, each counted from 0 around its run, the hybrid,
+input-feeding, LM training and grid ones also as ``hybrid_launches``,
+``input_feeding_launches``, ``train_launches`` and ``grid_launches``; ``luong_attn`` one record per route on the main path,
 ``flash_attn`` and ``moe_gemm`` also by route), the ``nvidia-smi`` name and
 power-limit line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of the JAX package.
@@ -240,6 +261,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -253,7 +275,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.plan import ExecutionPlan, ServePlan  # noqa: E402
+from repro_torch.core import strategy as stg  # noqa: E402
+from repro_torch.core.plan import ExecutionPlan, ServePlan, _placed_leaves  # noqa: E402
 from repro_torch.data import LMBatchIterator, MTBatchIterator, SyntheticLMTask, SyntheticMTTask  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import flash_attention_plain  # noqa: E402
@@ -266,7 +289,7 @@ from repro_torch.kernels.moe_gemm.ref import moe_gemm_plain  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import seq2seq as s2s  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import Initializer, tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.serve.engine import ContinuousEngine, ServeEngine, pad_cache, prefill_fn  # noqa: E402
 from repro_torch.train import Trainer  # noqa: E402
@@ -2075,7 +2098,8 @@ def phase_flash_timing(launches: int, routes: dict, max_err: float) -> dict:
     version, and scaled_dot_product_attention with is_causal and enable_gqa:
     the window of 4096 does not bind at S=2048, so it is the same function);
     the MoE prefill's call at G=8 (the kernel, "mma", SDPA); (b)'s call (the
-    kernel and "mma"; SDPA has no window)."""
+    kernel, "mma", and SDPA with the causal band of the window as a boolean
+    ``attn_mask``, which computes the same function)."""
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device="cuda")
     rows = {}
     for label, s, seed in (("a", FLASH_PREFILL_SHAPE, 9), ("moe", FLASH_MOE_SHAPE, 11), ("b", FLASH_LONG_SHAPE, 10)):
@@ -2085,13 +2109,19 @@ def phase_flash_timing(launches: int, routes: dict, max_err: float) -> dict:
         q4, k4, v4 = q.view(B, KV * G, S, D), k.view(B, KV, S, D), v.view(B, KV, S, D)  # head h reads kv head h // G
         kernel = lambda: flash_ops.flash_attention_fused(q, k, v, **kw)  # noqa: E731
         mma = lambda: flash_ops.flash_attention_fused(q, k, v, route="mma", **kw)  # noqa: E731
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)  # noqa: E731
+        if label == "b":  # the window binds: SDPA with a boolean causal band as its mask computes the same function
+            pos = torch.arange(S, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - s["window"])
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=band, enable_gqa=True)
+        else:
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=True, enable_gqa=True)
         t = {"kernel": _median_ms(kernel, 20, flush, True), "mma": _median_ms(mma, 20, flush, True)}
         got = kernel()
         max_err = max(max_err, _flash_bf16_check(got, q, k, v, kw, f"({label}) timing inputs")[0])
-        if label != "b":
-            t["library"] = _median_ms(library, 20, flush, True)
-            t["lib_err"] = (got.float() - library().reshape(got.shape).float()).abs().max().item()
+        t["library"] = _median_ms(library, 20, flush, True)
+        t["lib_err"] = (got.float() - library().reshape(got.shape).float()).abs().max().item()
         if label == "a":
             t["plain"] = _median_ms(lambda: flash_attention_plain(q, k, v, **kw), 10, flush, True)
         bound_ms, bound_by, nbytes, flops = _flash_bound(s)
@@ -2100,8 +2130,8 @@ def phase_flash_timing(launches: int, routes: dict, max_err: float) -> dict:
               f"median, L2 flushed: device time kernel (wgmma) {t['kernel']:.4f} ms, the mma route's kernel "
               f"{t['mma']:.4f} ms"
               + (f", plain {t['plain']:.4f} ms" if "plain" in t else "")
-              + (f", scaled_dot_product_attention {t['library']:.4f} ms (kernel vs sdpa max_abs_err "
-                 f"{t['lib_err']:.3e})" if "library" in t else ", no SDPA (it has no window)")
+              + f", scaled_dot_product_attention{' with the causal band as a boolean mask' if label == 'b' else ''} "
+              f"{t['library']:.4f} ms (kernel vs sdpa max_abs_err {t['lib_err']:.3e})"
               + f"; bound {bound_ms:.4f} ms ({bound_by}: {nbytes} B at 3.35 TB/s = "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, {flops} FLOP at 989 TFLOP/s = "
               f"{flops / BF16_FLOP_PER_S * 1e3:.4f} ms); kernel at {flops / t['kernel'] / 1e9:.2f} TFLOP/s, "
@@ -2113,7 +2143,8 @@ def phase_flash_timing(launches: int, routes: dict, max_err: float) -> dict:
         "name": "flash_attn", "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
         "launches": launches, "launches_by_route": routes, "max_abs_err": max_err, "ms": t["kernel"],
         "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library"],
-        "mma_route_ms": t["mma"],
+        "mma_route_ms": t["mma"], "window_ms": rows["b"][0]["kernel"], "window_bound_ms": rows["b"][1],
+        "window_library_ms": rows["b"][0]["library"],
     }
 
 
@@ -2806,8 +2837,398 @@ def phase_lm_backward():
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM training on the grid (phase 23)
+# ---------------------------------------------------------------------------
+
+GRID_DENSE_LAYERS = 8  # qwen3-1.7b cut to 8 of 28 layers for (a)'s fp32 comparisons
+GRID_MOE_LAYERS = 4  # qwen3-moe-30b-a3b cut to 4 of 48 in (a), as phase 21's fp32 comparison
+# (b): two ranks on one card, every collective staged through host memory; the embedding and head (311 M
+# parameters each) cost as much as 6 dense layers, so the depth is cut to 2 for both models
+GRID_DENSE_RANK_LAYERS = 2
+GRID_MOE_RANK_LAYERS = 2  # the MoE's two ranks hold the whole model under DATA, params and grads in fp32
+GRID_BATCH = 2  # x LM_TRAIN_SEQ tokens, the fp32 comparisons' batch (phase 21's)
+GRID_BF16_STEPS = 4  # (a): full-depth qwen3-1.7b on HYBRID through Trainer; the median is over steps 2-4
+# the expert-parallel layouts' fp32 comparisons: capacity factor E / k, at which no slot can drop on any path
+# (the global capacity is at least the token count, and so are Cs and Ce on every rank), at 2 x GRID_EP_SEQ
+# tokens: the [64, 4097, 2048] fp32 expert buffer of a rank and its backward fit two ranks on the card
+GRID_EP_SEQ = 1024
+GRID_TIGHT_CF = 1.0  # DATA's fp32 comparison: slots dropped (the global dispatch drops them as the meshless step)
+GRID_BF16_LOSS_TOL = 0.03  # bf16 steps' loss against the meshless bf16 step's (the repo's bf16 loss bound)
+# the dense model's bf16 grads against the meshless bf16 step's, per leaf ||diff|| / ||meshless||: the
+# tensor-parallel partial sums round differently from one bf16 product (tests/test_torch_lm_train.py's 0.1)
+GRID_BF16_GRAD_REL = 0.1
+GRID_RANK_LIMIT_S = 600  # (b): both ranks, every layout
+GRID_LAYOUTS = ("data", "model", "hybrid", "hybrid_opt")
+# (b): (label, grid, strategy) on two ranks of the card
+GRID_RANK_LAYOUTS = (("data 2x1", (2, 1), "data"), ("model 1x2", (1, 2), "model"), ("hybrid 1x2", (1, 2), "hybrid"),
+                     ("hybrid_opt 1x2", (1, 2), "hybrid_opt"), ("hybrid_opt 2x1", (2, 1), "hybrid_opt"))
+
+
+def _own_dispatch(ids, m, grid):
+    """Planted fault (i): DATA dispatching each rank's slots at its own
+    capacity and positions."""
+    C = moe_model._capacity(ids.shape[0], m.num_experts, m.capacity_factor)
+    dest, keep, rows = moe_model._dispatch(ids, m.num_experts, C)
+    return dest, keep, rows, C
+
+
+def _product_then_mean(stats, m, grid, loss_axis):
+    """Planted fault (ii): the load-balance statistics multiplied on each
+    rank, the products averaged over the grid."""
+    return stg.grid_mean(moe_model.aux_from_stats(stats, m), grid, "all", loss_axis)
+
+
+def _partial_unsummed(x, grid, axis):
+    """Planted fault (iii): a row-parallel partial output not summed over ``model``."""
+    return x
+
+
+# (fault, model, layout): each must make its layout miss the meshless fp32 step
+GRID_FAULTS = (("own capacity", "moe", "data 2x1", ("models.moe", "_global_dispatch", _own_dispatch)),
+               ("product before mean", "moe", "model 1x2", ("models.moe", "_grid_aux", _product_then_mean)),
+               ("partial not summed", "dense", "model 1x2", ("core.strategy", "sum_from_model", _partial_unsummed)))
+
+
+class _DeviceInitializer(Initializer):
+    """The port's initializer (its per-path seeds and scales) drawing on the
+    card: the values differ from the host draw's, and are the same in every
+    process on the card; a full-width model draws in milliseconds, not the
+    tens of seconds the host takes."""
+
+    def _draw(self, path: str, shape) -> torch.Tensor:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self._gen(path).initial_seed())
+        return torch.randn(shape, generator=g, device=self.device)
+
+    def normal(self, path, shape, scale=None):
+        if scale is None:
+            scale = 1.0 / np.sqrt(max(shape[-2] if len(shape) >= 2 else shape[-1], 1))
+        return self._place(scale * self._draw(path, shape))
+
+    def embedding(self, path, shape, scale=0.02):
+        return self._place(scale * self._draw(path, shape))
+
+
+def _grid_params(cfg, device) -> dict:
+    """``init_lm(0, cfg)``'s tree, drawn on the card (:class:`_DeviceInitializer`)."""
+    with _replaced(tfm, "Initializer", _DeviceInitializer):
+        return tfm.init_lm(0, cfg, device=device)
+
+
+def _grid_batch(cfg, device, batch: int = GRID_BATCH, seed: int = 1, seq=None) -> dict:
+    return batch_to_device(next(LMBatchIterator(SyntheticLMTask(cfg.vocab_size, branching=16), batch,
+                                                seq or LM_TRAIN_SEQ, seed=seed)), device)
+
+
+def _ample_cf(cfg) -> float:
+    """The capacity factor E / k: every capacity of the global and the
+    expert-parallel dispatch is then at least the tokens that could fill it."""
+    return cfg.moe.num_experts / cfg.moe.top_k
+
+
+def _grid_config(name: str, layers: int, cf=None, dtype: str = "float32"):
+    cfg = dataclasses.replace(get_config(name), num_layers=layers, dtype=dtype)
+    return cfg if cf is None else dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def _grid_step(cfg, plan, params, batch):
+    """One step of ``make_grad_fn`` on this rank's blocks of ``params``:
+    (loss, aux, this rank's blocks of the grads)."""
+    mine = plan.shard_params(params, cfg)
+    loss, extras, grads = make_grad_fn(cfg, plan)(mine, batch)
+    del mine
+    return float(loss), float(extras["aux"]), grads
+
+
+def _block_rel_errors(plan, cfg, grads, want) -> tuple:
+    """:func:`_grad_rel_errors` of this rank's blocks of the grads against
+    the same blocks of the whole tree ``want``, with no gather of the grads
+    (gloo stages every byte through host memory): each leaf's two squared
+    norms summed over the ranks, a rank's share of a leaf that some axes do
+    not shard divided by their ranks (one all-reduce of two numbers a leaf).
+    The same on every rank; every rank must call it."""
+    grid = plan.mesh
+    terms = []
+    for g, w, placed in zip(tree_leaves(grads), tree_leaves(plan.shard_params(want, cfg)),
+                            _placed_leaves(want, plan.placement(cfg))):
+        copies = grid.world // math.prod(grid.size(a) for a in stg.leaf_axes(placed))
+        terms.append(torch.stack([(g.double() - w.double()).square().sum(), w.double().square().sum()]) / copies)
+    sums = torch.stack(terms)
+    grid.all_reduce(sums).wait()
+    rel = (sums[:, 0].sqrt() / sums[:, 1].sqrt().clamp(min=1e-30)).tolist()
+    i = int(np.argmax(rel))
+    return rel[i], i
+
+
+def _expected_calls(cfg, shape: tuple, strategy: str, batch: int) -> dict:
+    """The shapes of one rank's flash_attn (q and k/v, kernel layout) and
+    moe_gemm (x) calls in a bf16 step of ``cfg`` on a grid of ``shape``."""
+    D, M = shape
+    tp = strategy != "data" and (M > 1 or strategy == "hybrid_opt")
+    B = batch // (D * M if strategy == "data" else D)
+    H, KV = cfg.num_heads // (M if tp else 1), cfg.num_kv_heads // (M if tp and cfg.num_kv_heads % M == 0 else 1)
+    if tp and cfg.num_kv_heads % M:
+        KV = 1
+    S = LM_TRAIN_SEQ
+    out = {"q": (B * H, S, cfg.head_dim), "kv": (B * KV, S, cfg.head_dim), "rows": B, "heads": (H, KV)}
+    if cfg.moe is not None:
+        m, T, cap = cfg.moe, B * S, moe_model._capacity
+        if strategy == "data":
+            C = min(cap(T * m.top_k * D * M, m.num_experts, m.capacity_factor), T * m.top_k)
+            out["x"] = (m.num_experts, C, cfg.d_model)
+        else:
+            Cs = cap(T // M * m.top_k, M, m.capacity_factor)
+            out["x"] = (m.num_experts // M, cap(M * Cs, m.num_experts // M, m.capacity_factor), cfg.d_model)
+    return out
+
+
+def lm_grid_rank(grid) -> dict:
+    """Phase 23 (b) on one of two ranks on the card (gloo, every collective
+    through host memory).  For each model (qwen3-1.7b at GRID_DENSE_RANK_LAYERS,
+    qwen3-moe-30b-a3b at GRID_MOE_RANK_LAYERS, full width, weights from
+    :func:`_grid_params`): each rank takes the meshless fp32 step; each of
+    GRID_RANK_LAYOUTS takes one fp32 step on a grid of its shape over these
+    ranks, each rank's blocks of the grads held against the same blocks of
+    the meshless step's (:func:`_block_rel_errors`; DATA at GRID_TIGHT_CF,
+    the expert-parallel layouts at :func:`_ample_cf` on GRID_BATCH x
+    GRID_EP_SEQ tokens); GRID_FAULTS the same with a fault planted; then one
+    bf16 step per layout at the config's capacity factor, its flash_attn and
+    moe_gemm calls recorded (route, shape, rows) and the first of each held
+    against its plain version, its loss (and the dense model's grads)
+    against the meshless bf16 step's.  Returns each rank's numbers."""
+    from repro_torch.launch.mesh import ProcessGrid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grids = {grid.shape: grid}
+    dev = grid.device
+    out = {}
+
+    def on(shape):
+        if shape not in grids:
+            grids[shape] = ProcessGrid(*shape, device=dev, timeout_s=grid.timeout.total_seconds())
+        return grids[shape]
+
+    def compare(res, ref, loss, aux, grads, plan, cfg):
+        rel, leaf = _block_rel_errors(plan, cfg, grads, ref[2])
+        torch.cuda.empty_cache()
+        res.update(loss=loss, loss_err=abs(loss - ref[0]), aux=aux, aux_err=abs(aux - ref[1]), grad_rel=rel,
+                   grad_leaf=leaf, ref_loss=ref[0])
+
+    for model, name, layers in (("dense", "qwen3-1.7b", GRID_DENSE_RANK_LAYERS),
+                                ("moe", "qwen3-moe-30b-a3b", GRID_MOE_RANK_LAYERS)):
+        base = _grid_config(name, layers)
+        whole = _grid_params(base, dev)
+        batch = _grid_batch(base, dev)
+        groups = [(None, GRID_RANK_LAYOUTS, batch)] if model == "dense" else \
+            [(GRID_TIGHT_CF, GRID_RANK_LAYOUTS[:1], batch),
+             (_ample_cf(base), GRID_RANK_LAYOUTS[1:], _grid_batch(base, dev, seq=GRID_EP_SEQ))]
+        for cf, layouts, batch in groups:
+            cfg = _grid_config(name, layers, cf)
+            loss, extras, g = make_grad_fn(cfg, ExecutionPlan(stage_kernel="cuda"))(whole, batch)
+            ref = (float(loss), float(extras["aux"]), g)
+            for label, shape, strategy in layouts:
+                res = {"cf": cf, "tokens": tuple(batch["tokens"].shape)}
+                plan = ExecutionPlan(strategy=strategy, mesh=on(shape), stage_kernel="cuda")
+                t0 = time.perf_counter()
+                loss, aux, grads = _grid_step(cfg, plan, whole, batch)
+                res["step_s"] = time.perf_counter() - t0
+                compare(res, ref, loss, aux, grads, plan, cfg)
+                del grads
+                for fault, fmodel, flabel, (module, attr, fn) in GRID_FAULTS:
+                    if (fmodel, flabel) == (model, label):
+                        mod = sys.modules[f"repro_torch.{module}"]
+                        with _replaced(mod, attr, fn):
+                            floss, faux, fgrads = _grid_step(cfg, plan, whole, batch)
+                        res["fault"] = {"name": fault}
+                        compare(res["fault"], ref, floss, faux, fgrads, plan, cfg)
+                        del fgrads
+                out[(model, label)] = res
+            del ref, g
+            torch.cuda.empty_cache()
+        batch = groups[0][2]
+        # bf16 at the config's capacity factor
+        cfg16 = _grid_config(name, layers, dtype="bfloat16")
+        plan16 = lambda shape, strategy: ExecutionPlan(strategy=strategy, mesh=on(shape), stage_kernel="cuda")  # noqa: E731
+        loss, extras, g = make_grad_fn(cfg16, ExecutionPlan(stage_kernel="cuda"))(whole, batch)
+        ref16 = (float(loss), float(extras["aux"]), g if model == "dense" else None)
+        del g
+        for label, shape, strategy in GRID_RANK_LAYOUTS:
+            flash, moe_calls, first = [], [], {}
+
+            def flash_rec(kernel, q, k, v, **kw):
+                o = kernel(q, k, v, **kw)
+                flash.append((tuple(q.shape), tuple(k.shape)))
+                first.setdefault("flash", (o.detach().clone(), q.detach().clone(), k.detach().clone(),
+                                           v.detach().clone(), dict(causal=kw["causal"], window=kw["window"],
+                                                                    group=kw["group"])))
+                return o
+
+            def moe_rec(kernel, x, w1, wg, w2, rows):
+                o = kernel(x, w1, wg, w2, rows)
+                moe_calls.append((tuple(x.shape), rows is not None))
+                first.setdefault("moe", (o.detach().clone(), tuple(t.detach().clone() for t in (x, w1, wg, w2)),
+                                         rows.clone()))
+                return o
+
+            _reset_launches()
+            with _flash_wrapped(flash_rec), _moe_wrapped(moe_rec):
+                plan = plan16(shape, strategy)
+                loss, aux, grads = _grid_step(cfg16, plan, whole, batch)
+                fr = dict(flash_ops.flash_attention_fused.launches_by_route)
+            res = {"loss": loss, "flash_routes": fr, "flash_calls": flash, "moe_routes":
+                   dict(moe_ops.moe_gemm_fused.launches_by_route), "moe_calls": moe_calls}
+            o, q, k, v, kw = first["flash"]
+            res["flash_err"] = _flash_bf16_check(o, q, k, v, kw, f"(lm-grid b) {model} {label} rank {grid.rank}")
+            if "moe" in first:
+                o, args, rows = first["moe"]
+                res["moe_err"] = _moe_bf16_check(o, args, f"(lm-grid b) {label} rank {grid.rank}", rows)
+            first.clear()
+            res.update(loss_err=abs(loss - ref16[0]), ref_loss=ref16[0])
+            if ref16[2] is not None:
+                res["grad_rel"], res["grad_leaf"] = _block_rel_errors(plan, cfg16, grads, ref16[2])
+            del grads
+            out[(model, label, "bf16")] = res
+        del whole, ref16
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def phase_lm_grid(device="cuda") -> dict:
+    """Phase 23, the slice's main path: the LMs trained on a grid.  (a) The
+    trivial 1 x 1 grid over NCCL: qwen3-1.7b at GRID_DENSE_LAYERS and
+    qwen3-moe-30b-a3b at GRID_MOE_LAYERS (full width, fp32, batch GRID_BATCH
+    x LM_TRAIN_SEQ), one step on each of DATA, MODEL, HYBRID and HYBRID_OPT
+    against the meshless step (the loss within LM_STEP_LOSS_TOL, every grad
+    leaf within LM_STEP_GRAD_REL of its norm); then GRID_BF16_STEPS bf16
+    steps of the full-depth qwen3-1.7b on HYBRID through Trainer, 2 x 28
+    flash_attn launches a step, all on "wgmma".  (b) Two ranks on the card
+    over gloo (:func:`lm_grid_rank`).  Returns the launches of the bf16
+    steps, (a)'s and (b)'s."""
+    from repro_torch.launch.mesh import make_grid, spawn_grid
+
+    t_phase = time.perf_counter()
+    launches = {"flash_attn": 0, "moe_gemm": 0}
+    with make_grid(1, 1, device=device) as grid:
+        for name, layers in (("qwen3-1.7b", GRID_DENSE_LAYERS), ("qwen3-moe-30b-a3b", GRID_MOE_LAYERS)):
+            cfg = _grid_config(name, layers)
+            params = _grid_params(cfg, device)
+            batch = _grid_batch(cfg, device)
+            loss, extras, ref = make_grad_fn(cfg, ExecutionPlan(stage_kernel="cuda"))(params, batch)
+            loss, aux = float(loss), float(extras["aux"])
+            for strategy in GRID_LAYOUTS:
+                plan = ExecutionPlan(strategy=strategy, mesh=grid, stage_kernel="cuda")
+                gl, ga, grads = _grid_step(cfg, plan, params, batch)
+                rel, leaf = _block_rel_errors(plan, cfg, grads, ref)
+                del grads
+                if abs(gl - loss) > LM_STEP_LOSS_TOL or abs(ga - aux) > LM_STEP_LOSS_TOL or not rel <= LM_STEP_GRAD_REL:
+                    fail(f"(lm-grid a) {name} {strategy} 1x1: loss {gl} vs meshless {loss}, aux {ga} vs {aux}, grad "
+                         f"leaf {leaf} relative L2 {rel:.3e} (bound {LM_STEP_GRAD_REL})")
+                print(f"[lm-grid] (a) 1x1 grid over {grid.backend}, {name} at {layers} layers, full width, fp32, "
+                      f"{GRID_BATCH} x {LM_TRAIN_SEQ}, {strategy}: loss {gl:.6f} vs meshless {loss:.6f} (|diff| "
+                      f"{abs(gl - loss):.2e})" + (f", aux {ga:.6f} vs {aux:.6f}" if cfg.moe is not None else "")
+                      + f"; {len(tree_leaves(ref))} grad leaves, worst relative L2 {rel:.3e} (leaf {leaf}; bound "
+                      f"{LM_STEP_GRAD_REL})")
+            del params, ref, batch
+            torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="bfloat16")
+        it = LMBatchIterator(SyntheticLMTask(cfg.vocab_size, branching=16), LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
+        batches = [next(it) for _ in range(GRID_BF16_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, adam(lr=1e-3), iter(batches), plan=ExecutionPlan(strategy="hybrid", mesh=grid,
+                                                                                  stage_kernel="cuda"),
+                          params=_grid_params(cfg, device), clip_norm=5.0, device=device)
+        torch.cuda.empty_cache()
+        L = cfg.num_layers
+        for step in range(1, GRID_BF16_STEPS + 1):
+            _reset_launches()
+            trainer.run(1, log_every=1, log=lambda line: None)
+            h = trainer.history[-1]
+            nf, wf = flash_ops.flash_attention_fused.launches, flash_ops.flash_attention_fused.launches_by_route["wgmma"]
+            if nf != 2 * L or wf != nf or not np.isfinite(h["loss"]):
+                fail(f"(lm-grid a) HYBRID 1x1 bf16 step {step}: flash_attn {nf} launches ({wf} wgmma), want 2 x {L}; "
+                     f"loss {h['loss']}")
+            launches["flash_attn"] += nf
+        ms = [h["step_s"] * 1e3 for h in trainer.history[1:]]
+        print(f"[lm-grid] (a) qwen3-1.7b full depth ({L} layers) on HYBRID, 1x1 grid over {grid.backend}, bf16 over "
+              f"fp32 masters through Trainer, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: median step {float(np.median(ms)):.1f} "
+              f"ms over steps 2-{GRID_BF16_STEPS} ({LM_TRAIN_BATCH * LM_TRAIN_SEQ / float(np.median(ms)) * 1e3:.0f} "
+              f"tok/s); losses {[round(x['loss'], 4) for x in trainer.history]}; flash_attn {2 * L} launches a step, "
+              f"all wgmma; peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"card {nvidia_smi_line()}")
+        del trainer
+        torch.cuda.empty_cache()
+    # (b) two ranks on the card over gloo
+    t0 = time.perf_counter()
+    ranks = spawn_grid(lm_grid_rank, 1, 2, device="cuda:0" if device == "cuda" else device, backend="gloo",
+                       timeout_s=GRID_RANK_LIMIT_S,
+                       collective_timeout_s=120.0, threads=0)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for model, name, layers in (("dense", "qwen3-1.7b", GRID_DENSE_RANK_LAYERS),
+                                ("moe", "qwen3-moe-30b-a3b", GRID_MOE_RANK_LAYERS)):
+        for label, shape, strategy in GRID_RANK_LAYOUTS:
+            r = r0[(model, label)]
+            cf = f" at {r['tokens'][0]} x {r['tokens'][1]}" + ("" if r["cf"] is None else f", capacity factor {r['cf']}")
+            if r["loss_err"] > LM_STEP_LOSS_TOL or r["aux_err"] > LM_STEP_LOSS_TOL or not r["grad_rel"] <= LM_STEP_GRAD_REL:
+                fail(f"(lm-grid b) {name} {label}: loss |diff| {r['loss_err']:.2e}, aux |diff| {r['aux_err']:.2e}, grad "
+                     f"leaf {r['grad_leaf']} relative L2 {r['grad_rel']:.3e}")
+            print(f"[lm-grid] (b) {name} at {layers} layers, full width, {label}, two processes on this card over gloo, "
+                  f"fp32{cf}: loss {r['loss']:.6f} vs meshless {r['ref_loss']:.6f} (|diff| {r['loss_err']:.2e}), aux "
+                  f"|diff| {r['aux_err']:.2e}; grads held by block on each rank, worst relative L2 {r['grad_rel']:.3e} (leaf "
+                  f"{r['grad_leaf']}; bound {LM_STEP_GRAD_REL}); step {r['step_s'] * 1e3:.0f} ms (host-staged, not a "
+                  "speed figure)")
+            if "fault" in r:
+                f = r["fault"]
+                caught = f["loss_err"] > LM_STEP_LOSS_TOL or f["aux_err"] > LM_STEP_LOSS_TOL or \
+                    not f["grad_rel"] <= LM_STEP_GRAD_REL
+                if not caught:
+                    fail(f"control: (lm-grid b) {label} with '{f['name']}' planted passes the checks")
+                print(f"[lm-grid] (b) control {label} with '{f['name']}' planted: loss |diff| {f['loss_err']:.2e}, aux "
+                      f"|diff| {f['aux_err']:.2e}, worst grad relative L2 {f['grad_rel']:.3e} (caught)")
+            cfg16 = _grid_config(name, layers, dtype="bfloat16")
+            want = _expected_calls(cfg16, shape, strategy, GRID_BATCH)
+            for rank, rr in enumerate(ranks):
+                b = rr[(model, label, "bf16")]
+                n = 2 * layers
+                if b["flash_routes"]["wgmma"] != n or len(b["flash_calls"]) != n or \
+                        any(c != (want["q"], want["kv"]) for c in b["flash_calls"]):
+                    fail(f"(lm-grid b) {name} {label} bf16 rank {rank}: flash_attn {b['flash_routes']}, calls "
+                         f"{set(b['flash_calls'])}, want {n} on wgmma at q {want['q']} k/v {want['kv']}")
+                if cfg16.moe is not None and (b["moe_routes"]["wgmma"] != n or len(b["moe_calls"]) != n or
+                                              any(c != (want["x"], True) for c in b["moe_calls"])):
+                    fail(f"(lm-grid b) {name} {label} bf16 rank {rank}: moe_gemm {b['moe_routes']}, calls "
+                         f"{set(b['moe_calls'])}, want {n} on wgmma at x {want['x']} with rows")
+                launches["flash_attn"] += b["flash_routes"]["wgmma"]
+                launches["moe_gemm"] += b["moe_routes"]["wgmma"]
+            b = r0[(model, label, "bf16")]
+            if not b["loss_err"] <= GRID_BF16_LOSS_TOL or not b.get("grad_rel", 0.0) <= GRID_BF16_GRAD_REL:
+                fail(f"(lm-grid b) {name} {label} bf16: loss |diff| {b['loss_err']:.3e} from the meshless bf16 step "
+                     f"(bound {GRID_BF16_LOSS_TOL}), grad relative L2 {b.get('grad_rel')}")
+            grads = (f"; grads held by block on each rank, worst relative L2 {b['grad_rel']:.3e} (leaf {b['grad_leaf']}, bound "
+                     f"{GRID_BF16_GRAD_REL})" if "grad_rel" in b else "")
+            moe = (f"; moe_gemm {2 * layers} a rank on wgmma at x {want['x']} with rows, the first against the plain "
+                   f"version max_abs_err {b['moe_err'][0]:.3e} rel L2 {b['moe_err'][1]:.3e}" if "x" in want else "")
+            print(f"[lm-grid] (b) {name} {label} bf16 (capacity factor as configured): loss {b['loss']:.6f} vs meshless "
+                  f"bf16 {b['ref_loss']:.6f} (|diff| {b['loss_err']:.3e} <= {GRID_BF16_LOSS_TOL}){grads}; flash_attn "
+                  f"{2 * layers} a rank on wgmma at q {want['q']} k/v {want['kv']} ({want['rows']} rows x "
+                  f"{want['heads'][0]} q / {want['heads'][1]} kv heads a rank), the first against the plain version "
+                  f"max_abs_err {b['flash_err'][0]:.3e} rel L2 {b['flash_err'][1]:.3e}{moe}")
+    print(f"[lm-grid] (b) both ranks done in {wall:.1f}s; peak max_memory_allocated {ranks[0]['peak_bytes'] / 1e9:.2f} "
+          f"and {ranks[1]['peak_bytes'] / 1e9:.2f} GB; phase 23 in {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--only", "lm-grid"]:  # the grid phase alone (its build included), for work on it
+        phase_environment()
+        phase_build()
+        phase_lm_grid()
+        print(f"[done] phase 23 alone in {time.perf_counter() - t_start:.1f}s")
+        return
     phase_environment()
     phase_build()
     max_err = phase_parity()
@@ -2882,6 +3303,7 @@ def main():
                                f" of 48 (cut: 16 B of training state a parameter is 49.8 GB at {MOE_TRAIN_LAYERS} "
                                "layers, 70 GB at 6 before activations, 90 GB at the serving phase's 8)")
     backward_ms = phase_lm_backward()
+    grid_launches = phase_lm_grid()
     records.append(phase_flash_timing(flash_launches + moe_flash_launches,
                                       {r: flash_routes[r] + moe_flash_routes[r] for r in flash_routes}, flash_err))
     records.append(phase_moe_timing(moe_launches, moe_routes, moe_err, prefill_buf, decode_buf))
@@ -2892,8 +3314,12 @@ def main():
         rec["launches_by_route"] = dict(rec["launches_by_route"], wgmma=rec["launches_by_route"]["wgmma"] + train)
         rec["train_launches"] = train
         rec["train_backward_ms"] = {k: v for k, v in backward_ms.items() if k.startswith(name)}
-        print(f"[timing] {name}: {train} launches in the LM training runs (phases 19-20), all on the wgmma route; "
-              f"{rec['launches']} on the main paths in all")
+        grid = grid_launches[name]  # phase 23's bf16 steps, (a)'s and both ranks' of (b), every one on wgmma
+        rec["launches"] += grid
+        rec["launches_by_route"]["wgmma"] += grid
+        rec["grid_launches"] = grid
+        print(f"[timing] {name}: {train} launches in the LM training runs (phases 19-20) and {grid} in the grid "
+              f"phase's bf16 steps (23), all on the wgmma route; {rec['launches']} on the main paths in all")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))
     print(nvidia_smi_line())

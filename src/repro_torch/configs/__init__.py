@@ -14,6 +14,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig, reduced  # noqa: F4
 _REGISTRY = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "seq2seq-rnn": "seq2seq_rnn",
 }
 

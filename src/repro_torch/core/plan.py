@@ -37,11 +37,16 @@ MoE LM families under ``full_kv`` and ``window``.
 
 Every validator of the JAX plan is kept.
 
-The dense and MoE LM families train on a plan with no grid only
-(:func:`check_lm_plan`): every leaf whole on the one process.  On a grid the
-JAX package computes the MoE load-balance statistics and the expert
-capacity over the global batch, which a rank holding a block of the rows
-does not see; that layout is ROADMAP queue 1 item 4(d).
+The dense and MoE LM families train on every strategy (the JAX package's
+``make_loss_fn`` for them, ``repro/train/trainer.py:118-146``): DATA with
+every leaf whole on each rank, the others tensor-parallel on a ``model``
+axis above 1 (and HYBRID_OPT on any grid), each leaf placed by the JAX rule
+on ``models/transformer.py::param_specs``; the MoE is expert-parallel on
+every strategy but DATA.  The JAX LM loss never reads ``plan.backbone``, so
+a pipelined plan runs an LM on its tensor-parallel twin
+(:meth:`ExecutionPlan.for_config`).  :func:`check_lm_plan` refuses the
+grids whose ``model`` axis does not split the heads, ``ff``, the experts or
+the vocabulary (the JAX rule would replicate those dims there).
 
 :meth:`ExecutionPlan.placement` places each leaf (per dim, the grid axis
 that shards it, or None): the JAX rule on the tensor-parallel layouts,
@@ -186,17 +191,34 @@ def _placed_leaves(params, placed) -> list:
     return out
 
 
-LM_GRID_ITEM = "ROADMAP queue 1 item 4(d)"
-
-
 def check_lm_plan(plan, cfg) -> None:
-    """Raise unless ``plan`` can train ``cfg``: an LM (dense or MoE family)
-    trains only on a plan with no grid."""
-    if cfg.family != "seq2seq" and plan.mesh is not None:
-        raise NotImplementedError(
-            f"training {cfg.name} (the {cfg.family} family) on a grid is not ported yet ({LM_GRID_ITEM}): the MoE "
-            "load-balance statistics and expert capacity are global-batch quantities in the JAX package; train it "
-            "with no --mesh")
+    """Raise unless ``plan`` can train the LM ``cfg`` (dense or MoE family):
+    on a tensor-parallel plan the ``model`` axis must split the q heads (or
+    the grouped layout's kv heads or groups), ``ff``, the experts and the
+    vocabulary, which the port's blocks shard without a replicated
+    fallback."""
+    if cfg.family == "seq2seq":
+        return
+    plan = plan.for_config(cfg)
+    if not plan.tensor_parallel:
+        return
+    M = plan.mesh.size(plan.model_axis)
+    G = cfg.num_heads // cfg.num_kv_heads
+    dims = [("num_heads" if cfg.attn_flat else "q groups", cfg.num_heads if cfg.attn_flat else
+             (cfg.num_kv_heads if cfg.num_kv_heads % M == 0 else G)), ("vocab_size", cfg.vocab_size)]
+    if cfg.attn_flat and cfg.num_kv_heads % M and cfg.num_heads % M == 0 and G % (cfg.num_heads // M):
+        raise NotImplementedError(f"{cfg.name} on a model axis of {M}: a rank's {cfg.num_heads // M} q heads read "
+                                  f"parts of two of the {cfg.num_kv_heads} whole kv heads ({G} q heads each)")
+    if cfg.moe is not None:
+        dims.append(("num_experts", cfg.moe.num_experts))
+    if any(not cfg.is_moe_layer(pos) for pos in range(cfg.layer_group)) and cfg.d_ff:
+        dims.append(("d_ff", cfg.d_ff))
+    for name, n in dims:
+        if n % M:
+            raise NotImplementedError(
+                f"{cfg.name} on a model axis of {M}: {name}={n} does not split over it, and the port's tensor-parallel "
+                f"blocks have no replicated fallback ({cfg.num_heads} q heads, {cfg.num_kv_heads} kv heads); pick a "
+                "model axis that divides it")
 
 
 @dataclass(frozen=True)
@@ -297,9 +319,12 @@ class ExecutionPlan:
         same :attr:`accum_steps` of 1).  The input-feeding decoder runs the
         head inside its recurrence, so it has no backbone to pipeline: the
         JAX package drops the backbone (``repro/train/trainer.py:109``) and
-        places the parameters by the strategy alone.  Every method that takes
-        ``cfg`` runs on the plan this returns."""
-        if cfg.input_feeding and self.pipelined and self.mesh.size(self.model_axis) > 1:
+        places the parameters by the strategy alone.  An LM has no backbone
+        to pipeline either (``repro/train/trainer.py:118-146``): a pipelined
+        plan runs it so too, in one forward and backward.  Every method that
+        takes ``cfg`` runs on the plan this returns."""
+        lm = cfg.family != "seq2seq"
+        if self.pipelined and (lm or cfg.input_feeding and self.mesh.size(self.model_axis) > 1):
             return dataclasses.replace(self, use_pipeline=False, micro_batches=1, schedule="gpipe", virtual_stages=1)
         return self
 
@@ -464,18 +489,20 @@ class ExecutionPlan:
         """The placement tree of ``cfg``'s parameters: for each leaf, per
         dim, the grid axis that shards it or None.  The JAX rule
         (``stg.param_placement``) on the tensor-parallel layouts; nothing
-        sharded on the others.  An LM's on a plan with no grid (nothing
-        sharded); on a grid it raises (:func:`check_lm_plan`)."""
+        sharded on the others.  An LM's by the same rule on its spec tree
+        (``models/transformer.py::param_specs``), on the plans
+        :func:`check_lm_plan` takes."""
         from repro_torch.models import seq2seq as s2s  # local: avoid an import cycle
         from repro_torch.models import transformer as tfm
 
         if cfg.family != "seq2seq":
             check_lm_plan(self, cfg)
-            return stg.map_shapes(lambda shape: (None,) * len(shape), tfm.param_shapes(cfg))
-        shapes = s2s.param_shapes(cfg)
+            shapes, specs = tfm.param_shapes(cfg), tfm.param_specs(cfg)
+        else:
+            shapes, specs = s2s.param_shapes(cfg), s2s.param_specs(cfg.num_layers)
         if not self.tensor_parallel:
             return stg.map_shapes(lambda shape: (None,) * len(shape), shapes)
-        return stg.param_placement(s2s.param_specs(cfg.num_layers), shapes, self.mesh, self.strategy)
+        return stg.param_placement(specs, shapes, self.mesh, self.strategy)
 
     @_for_config
     def sharding(self, cfg) -> Optional[stg.Sharding]:
@@ -506,8 +533,13 @@ class ExecutionPlan:
           replicated and summed over the grid (HYBRID), or owned by the top
           stage and summed over ``data`` (MODEL);
         * tensor-parallel: each leaf sharded as :meth:`placement` says, its
-          grad summed over the axes that do not shard it (``grad_axes``)."""
+          grad summed over the axes that do not shard it (``grad_axes``);
+        * an LM on a grid: every rank computes every grad, summed as on the
+          tensor-parallel layouts, but for the leaves whose grad each
+          ``model`` rank computes whole (``transformer.grad_whole_on_model``:
+          the norms), summed over ``data`` alone."""
         from repro_torch.core.pipeline import layer_stage  # local: avoid an import cycle
+        from repro_torch.models.transformer import grad_whole_on_model
 
         S = stg.Strategy
         placed = _placed_leaves(params, self.placement(cfg))
@@ -517,6 +549,11 @@ class ExecutionPlan:
                 out.append(LeafRole(None, None))
             elif self.strategy == S.DATA:
                 out.append(LeafRole(None, "all"))
+            elif cfg.family != "seq2seq":
+                axes = stg.grad_axes(p, self.mesh)
+                if self.tensor_parallel and grad_whole_on_model(path):
+                    axes = tuple(a for a in axes if a != self.model_axis)
+                out.append(LeafRole(None, stg.axis_name(axes), stg.leaf_axes(p)))
             elif self.tensor_parallel:
                 out.append(LeafRole(None, stg.axis_name(stg.grad_axes(p, self.mesh)), stg.leaf_axes(p)))
             elif path[0] in stg.HEAD_KEYS:

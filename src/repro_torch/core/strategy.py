@@ -39,6 +39,18 @@ are kept as each rank's term of a sum over ``model``: a column shard of the
 cell adds its columns' share, a rank's head rows their own.  So a leaf's
 grad is whole once it is summed over the grid axes that do not shard it
 (:func:`grad_axes`).
+
+The LMs' tensor-parallel blocks keep the other convention (Megatron's):
+the residual stream's grad is whole on every ``model`` rank.  A block is
+entered through :func:`copy_to_model` (its grad all-reduced over ``model``
+in the backward) and left through :func:`sum_from_model` (the partial
+outputs summed in fp32 in the forward), the expert-parallel MoE takes its
+rows with :func:`split_rows` and gives them back with :func:`gather_rows`,
+and the head's rows under HYBRID are :func:`lm_phase_boundary`'s.  A leaf
+that ``model`` does not shard then has its grad whole on every ``model``
+rank when it acts on such an activation (the norms), and the rank's term
+when it reads the rank's own heads, tokens or rows
+(``ExecutionPlan.leaf_roles``).
 """
 from __future__ import annotations
 
@@ -259,12 +271,12 @@ class _GatherFn(torch.autograd.Function):
 class _VocabEmbedFn(torch.autograd.Function):
     """The embedding lookup on a vocab-sharded table: each rank looks up the
     tokens its rows of the table hold (zeros elsewhere) and the ranks' rows
-    are summed over ``axis``.  Backward: the output's grad (each rank's term)
-    summed over ``axis``, then scattered into this rank's rows of the
-    table."""
+    are summed over ``axis``.  Backward: the output's grad summed over
+    ``axis`` when it holds each rank's term (``reduce_grad``; whole on every
+    rank otherwise), then scattered into this rank's rows of the table."""
 
     @staticmethod
-    def forward(ctx, table, tokens, grid, axis, dt):
+    def forward(ctx, table, tokens, grid, axis, dt, reduce_grad=True):
         V = table.shape[0]
         lo = grid.index(axis) * V
         mine = (tokens >= lo) & (tokens < lo + V)
@@ -272,17 +284,130 @@ class _VocabEmbedFn(torch.autograd.Function):
         out = torch.where(mine[..., None], table[idx].float(), torch.zeros((), device=table.device))
         grid.all_reduce(out, axis).wait()
         ctx.save_for_backward(idx, mine)
-        ctx.grid, ctx.axis, ctx.shape = grid, axis, table.shape
+        ctx.grid, ctx.axis, ctx.shape, ctx.reduce_grad = grid, axis, table.shape, reduce_grad
         return out.to(dt)
 
     @staticmethod
     def backward(ctx, g):
         idx, mine = ctx.saved_tensors
         g = g.float().contiguous().clone()
-        ctx.grid.all_reduce(g, ctx.axis).wait()
+        if ctx.reduce_grad:
+            ctx.grid.all_reduce(g, ctx.axis).wait()
         dt = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
         dt.index_put_((idx[mine],), g[mine], accumulate=True)
-        return dt, None, None, None, None
+        return dt, None, None, None, None, None
+
+
+class _ModelParallelFn(torch.autograd.Function):
+    """The pair of a tensor-parallel block (Megatron's f and g), whose
+    activations outside the block are whole on every rank of ``axis`` and
+    so are their grads.  At a column-parallel input (``at_output`` False):
+    the identity forward, the grad all-reduced over ``axis`` backward (each
+    rank's matmul gives its term).  At a row-parallel output (True): the
+    ranks' partial sums all-reduced over ``axis`` in fp32 and cast once to
+    the input's dtype forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis, at_output):
+        ctx.grid, ctx.axis, ctx.at_output = grid, axis, at_output
+        if not at_output:
+            return x
+        s = x.float().contiguous().clone()
+        grid.all_reduce(s, axis).wait()
+        return s.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.at_output:
+            g = g.contiguous().clone()
+            ctx.grid.all_reduce(g, ctx.axis).wait()
+        return g, None, None, None
+
+
+def copy_to_model(x: torch.Tensor, grid, axis: str) -> torch.Tensor:
+    """``x`` (whole on every rank of ``axis``) entering a column-parallel
+    product: its grad is all-reduced over ``axis`` in the backward."""
+    return _ModelParallelFn.apply(x, grid, axis, False) if grid.size(axis) > 1 else x
+
+
+def sum_from_model(x: torch.Tensor, grid, axis: str) -> torch.Tensor:
+    """A row-parallel product's partial output, summed over ``axis`` in fp32."""
+    return _ModelParallelFn.apply(x, grid, axis, True) if grid.size(axis) > 1 else x
+
+
+class _RowsFn(torch.autograd.Function):
+    """Rows of a tensor whose grad is whole on every rank of ``axis``:
+    ``split`` takes this rank's block of ``size(axis)`` equal row blocks
+    (backward: the blocks' grads all-gathered whole); otherwise the blocks
+    are all-gathered (backward: this rank's block of the grad, whole
+    already)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis, split):
+        ctx.grid, ctx.axis, ctx.split = grid, axis, split
+        if split:
+            return x.chunk(grid.size(axis))[grid.index(axis)].contiguous()
+        return grid.all_gather(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        grid, axis = ctx.grid, ctx.axis
+        if ctx.split:
+            return grid.all_gather(g.contiguous(), axis), None, None, None
+        return g.chunk(grid.size(axis))[grid.index(axis)].contiguous(), None, None, None
+
+
+def split_rows(x: torch.Tensor, grid, axis: str) -> torch.Tensor:
+    return _RowsFn.apply(x, grid, axis, True) if grid.size(axis) > 1 else x
+
+
+def gather_rows(x: torch.Tensor, grid, axis: str) -> torch.Tensor:
+    return _RowsFn.apply(x, grid, axis, False) if grid.size(axis) > 1 else x
+
+
+class _AllToAllFn(torch.autograd.Function):
+    """``ProcessGrid.all_to_all`` over ``axis``; its backward is the same
+    all-to-all on the grad (the exchange is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis):
+        ctx.grid, ctx.axis = grid, axis
+        return grid.all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.all_to_all(g.contiguous(), ctx.axis), None, None
+
+
+def all_to_all(x: torch.Tensor, grid, axis: str) -> torch.Tensor:
+    """The equal-split all-to-all of ``x``'s dim 0 over ``axis``, differentiably."""
+    return _AllToAllFn.apply(x, grid, axis) if grid.size(axis) > 1 else x
+
+
+class _GridMeanFn(torch.autograd.Function):
+    """The mean of ``x`` over the ranks of ``axis``.  Backward: the grad
+    summed over ``grad_axis`` (the axis whose ranks' losses are terms of the
+    step's loss; None: the loss is whole on every rank) and divided by the
+    rank count, so each rank's statistic gets its share of the whole
+    loss's grad."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis, grad_axis):
+        ctx.grid, ctx.grad_axis, ctx.n = grid, grad_axis, grid.size(axis)
+        s = x.contiguous().clone()
+        grid.all_reduce(s, axis).wait()
+        return s / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        if ctx.grad_axis is not None:
+            ctx.grid.all_reduce(g, ctx.grad_axis).wait()
+        return g / ctx.n, None, None, None
+
+
+def grid_mean(x: torch.Tensor, grid, axis: str, grad_axis: Optional[str]) -> torch.Tensor:
+    return _GridMeanFn.apply(x, grid, axis, grad_axis) if grid.size(axis) > 1 else x
 
 
 class _VocabParallelCEFn(torch.autograd.Function):
@@ -342,13 +467,16 @@ class Sharding:
         return [{n: self.gather(p[n], pl[n], keep=(self.axis,)) for n in p}
                 for p, pl in zip(layers, self.placement[key])]
 
-    def embed(self, key: str, table: torch.Tensor, tokens: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    def embed(self, key: str, table: torch.Tensor, tokens: torch.Tensor, dt: torch.dtype,
+              reduce_grad: bool = True) -> torch.Tensor:
         """The rows of ``tokens`` of embedding ``key`` in ``dt``: a masked
-        lookup in this rank's vocab block, summed over ``model``."""
+        lookup in this rank's vocab block, summed over ``model``; the
+        output's grad summed over ``model`` in the backward unless it is
+        whole on every rank already (``reduce_grad`` False)."""
         placed = self.placement[key]["table"]
         table = self.gather(table, placed, keep=(self.axis,))
         if placed[0] == self.axis and self.grid.size(self.axis) > 1:
-            return _VocabEmbedFn.apply(table, tokens, self.grid, self.axis, dt)
+            return _VocabEmbedFn.apply(table, tokens, self.grid, self.axis, dt, reduce_grad)
         return table[tokens.long()].to(dt)
 
     def head(self, head: dict) -> dict:
@@ -403,6 +531,8 @@ class Sharding:
 
 class _Identity:
     """No reshard: the head runs on the backbone's rows."""
+
+    splits_rows = False
 
     def __call__(self, x):
         return x
@@ -501,3 +631,26 @@ def phase_boundary_fn(strategy: Strategy, grid: Optional[object], tensor_paralle
     if strategy == Strategy.HYBRID:
         return _ScatterToGrid(grid)
     return _TopStageOnly(grid)
+
+
+class _RowSplit(_RowBlock):
+    """HYBRID on an LM's tensor-parallel trunk (whose output, and its grad,
+    every ``model`` rank holds whole): rank (d, m) keeps block m of data
+    shard d's rows, as :class:`_RowBlock` lays them out, and the blocks'
+    grads are all-gathered back whole in the backward."""
+
+    splits_rows = True
+
+    def __call__(self, x):
+        return split_rows(x, self.grid, "model")
+
+
+def lm_phase_boundary(strategy: Strategy, grid: Optional[object], tensor_parallel: bool):
+    """The phase boundary of an LM's step (``repro/core/strategy.py:229-256``
+    on the port's ranks): before the LM head, HYBRID on a ``model`` axis
+    above 1 spreads the rows over every rank (:class:`_RowSplit`); every
+    other layout keeps them where they are (MODEL and HYBRID_OPT run the
+    vocab-parallel head on the data shard's rows)."""
+    if grid is None or not tensor_parallel or strategy != Strategy.HYBRID or grid.size("model") == 1:
+        return _Identity()
+    return _RowSplit(grid)

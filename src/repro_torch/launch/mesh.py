@@ -237,6 +237,21 @@ class ProcessGrid:
         dist.all_reduce(buf, group=g)
         return buf.chunk(n, dim=dim)[i].contiguous().to(t.device)
 
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The equal-split all-to-all over ``axis``: ``t``'s dim 0 is cut into
+        ``size(axis)`` equal blocks, block j goes to coordinate j, and block i
+        of the result came from coordinate i (a new tensor; ``t`` itself on an
+        axis of size 1).  Applied twice it gives back ``t``."""
+        g = self._groups[axis]
+        if g is None:
+            return t
+        if t.shape[0] % self.size(axis):
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split into {self.size(axis)} blocks over {axis!r}")
+        buf = self._carrier(t).contiguous()
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, group=g)
+        return out.to(t.device)
+
     def broadcast(self, t: torch.Tensor, axis: str, src: int) -> None:
         """``t`` <- coordinate ``src``'s ``t``, in place."""
         g = self._groups[axis]

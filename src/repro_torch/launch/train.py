@@ -1,5 +1,5 @@
-"""Training launcher of the port: the paper's seq2seq model, on one card or
-on a grid of ranks, and the dense and MoE LMs on one card.
+"""Training launcher of the port: the paper's seq2seq model and the dense
+and MoE LMs, on one card or on a grid of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch seq2seq-rnn --steps 200 --batch 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch seq2seq-rnn --smoke --device cpu
@@ -11,17 +11,22 @@ on a grid of ranks, and the dense and MoE LMs on one card.
         --device cpu --strategy hybrid_opt --mesh test --grid 2x2 --batch 16
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch seq2seq-rnn --smoke \
         --device cpu --input-feeding --strategy hybrid --mesh test --grid 1x2 --batch 16
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \
+        --device cpu --strategy hybrid --mesh test --grid 1x2 --steps 4
 
 Weights are random, from the port's initializer and ``--seed``; batches come
 from ``SyntheticMTTask`` through ``MTBatchIterator`` (seq2seq), or from
 ``SyntheticLMTask(V, branching=16)`` through ``LMBatchIterator`` at ``--seq``
 tokens (the LMs), as in ``repro.launch.train``; the optimizer is Adam.
 Prints the same config line and ``step N  loss ...  tok/s ...`` lines (rank
-0 only on a grid).  An LM trains with no grid: ``--mesh`` or ``--pipeline``
-with an LM arch exits naming ROADMAP queue 1 item 4(d), as does an LM whose
-training state (fp32 masters, grads and Adam's two moments: 16 B a
-parameter) exceeds one card (the full ``qwen3-moe-30b-a3b``: cut its depth
-with ``--num-layers``).
+0 only on a grid).  An LM whose training state on one rank (fp32 masters,
+grads and Adam's two moments: 16 B a parameter of the rank's share under
+the plan's placement, reckoned from the shapes before anything is
+allocated) exceeds one card exits, naming the smallest test grid it fits
+on (the full ``qwen3-moe-30b-a3b`` on one card: cut its depth with
+``--num-layers``, or spread it over a grid).  ``--pipeline`` with an LM arch
+warns and runs the step unpipelined (tensor-parallel on a ``model`` axis
+above 1): the JAX LM loss has no backbone to pipeline.
 
 The JAX launcher's multi-device flags: ``--strategy``, ``--mesh`` (``none``;
 ``test``, the 2 x 4 grid of ``make_test_mesh`` or the ``--grid DxM`` one,
@@ -44,14 +49,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-
-from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs import ARCH_IDS, get_config
 import math
+from typing import Optional
 
 import torch
 
-from repro_torch.core.plan import COMPUTE_DTYPES, LM_GRID_ITEM, STAGE_KERNELS, ExecutionPlan
+from repro_torch.checkpoint import save_checkpoint
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.plan import COMPUTE_DTYPES, STAGE_KERNELS, ExecutionPlan
 from repro_torch.core.schedule import SCHEDULES
 from repro_torch.core.strategy import Strategy, map_shapes
 from repro_torch.data import LMBatchIterator, MTBatchIterator, SyntheticLMTask, SyntheticMTTask
@@ -95,17 +100,68 @@ def _n_params(cfg) -> int:
     return sum(sizes)
 
 
-def _check_lm_state_fits(cfg, device) -> None:
-    """Exit before any allocation when an LM's training state (fp32 masters,
-    grads, Adam's m and v: 16 B a parameter) exceeds one card."""
+class GridShape:
+    """The shape of a ``data x model`` grid without its processes: what a
+    plan's validators and its placement read."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, data: int, model: int):
+        self.data, self.model, self.world = data, model, data * model
+        self.shape = (data, model)
+
+    def size(self, axis: str) -> int:
+        return {"data": self.data, "model": self.model, "all": self.world}[axis]
+
+
+def lm_state_bytes(cfg, strategy, shape) -> Optional[int]:
+    """The bytes of training state (fp32 masters, grads, Adam's m and v: 16 B
+    a parameter) one rank holds when ``cfg`` trains under ``strategy`` on a
+    grid of ``shape`` (None: one process): each leaf's share under the plan's
+    placement, from the shapes alone.  None when the plan cannot train
+    ``cfg`` on that grid (``core/plan.py::check_lm_plan``)."""
+    grid = GridShape(*shape) if shape is not None else None
+    try:
+        placement = ExecutionPlan(strategy=Strategy(strategy), mesh=grid).placement(cfg)
+    except NotImplementedError:
+        return None
+    sizes = {None: 1} if grid is None else {None: 1, "data": grid.data, "model": grid.model}
+    shares = []
+    map_shapes(lambda shape_, placed: shares.append(math.prod(shape_) // math.prod(sizes[a] for a in placed)),
+               tfm.param_shapes(cfg), placement)
+    return 16 * sum(shares)
+
+
+def smallest_grid(cfg, strategy, cap: int, max_world: int = 256) -> Optional[tuple]:
+    """The test grid of the fewest ranks (the widest ``model`` axis first)
+    on which a rank's training state of ``cfg`` under ``strategy`` fits in
+    ``cap`` bytes, or None up to ``max_world`` ranks."""
+    for world in range(1, max_world + 1):
+        for model in sorted((m for m in range(1, world + 1) if world % m == 0), reverse=True):
+            need = lm_state_bytes(cfg, strategy, (world // model, model))
+            if need is not None and need <= cap:
+                return world // model, model
+    return None
+
+
+def check_lm_state_fits(cfg, device, strategy="single", shape=None) -> None:
+    """Exit before any allocation when an LM's training state on one rank of
+    the grid (16 B a parameter of the rank's share, :func:`lm_state_bytes`)
+    exceeds the card, naming the smallest test grid it fits on."""
     n = _n_params(cfg)
     dev = resolve_device(device)
     cap = torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda" else ONE_CARD_BYTES
-    if 16 * n > cap:
-        raise SystemExit(f"--arch {cfg.name}: {n:,} parameters x 16 B of training state (fp32 masters, grads, Adam m "
-                         f"and v) = {16 * n / 1e9:.0f} GB, more than the "
-                         f"{'card' if dev.type == 'cuda' else 'one-card budget'}'s {cap / 1e9:.0f} GB; cut the depth "
-                         f"with --num-layers, or wait for the layout over several cards ({LM_GRID_ITEM})")
+    need = lm_state_bytes(cfg, strategy, shape)
+    if need is None or need <= cap:
+        return
+    where = "one rank" if shape is None else f"a rank of the {shape[0]}x{shape[1]} grid under --strategy {strategy}"
+    fits = smallest_grid(cfg, strategy, cap)
+    hint = (f"the smallest test grid it fits on is --mesh test --grid {fits[0]}x{fits[1]}" if fits is not None else
+            f"no test grid of up to 256 ranks fits it under --strategy {strategy}")
+    raise SystemExit(f"--arch {cfg.name}: {n:,} parameters x 16 B of training state (fp32 masters, grads, Adam m "
+                     f"and v) = {16 * n / 1e9:.0f} GB, {need / 1e9:.1f} GB on {where}, more than the "
+                     f"{'card' if dev.type == 'cuda' else 'one-card budget'}'s {cap / 1e9:.0f} GB; {hint}, or cut "
+                     "the depth with --num-layers")
 
 
 def main(argv=None):
@@ -157,12 +213,11 @@ def main(argv=None):
         raise SystemExit("--grid sets the shape of --mesh test")
     lm = cfg.family != "seq2seq"
     if lm:
-        if args.mesh != "none" or args.pipeline:
-            raise SystemExit(f"--arch {args.arch}: training an LM on a grid is not ported yet ({LM_GRID_ITEM}); "
-                             "run it without --mesh and --pipeline")
         if args.input_feeding:
             raise SystemExit("--input-feeding applies to the seq2seq arch")
-        _check_lm_state_fits(cfg, args.device)
+        if args.mesh in ("none", "test"):  # the TPU meshes raise by name below
+            shape = (args.grid or (2, 4)) if args.mesh == "test" else ((1, 1) if args.pipeline else None)
+            check_lm_state_fits(cfg, args.device, args.strategy, shape)
     grid = make_mesh(args.mesh, args.pipeline, args.device, args.grid)
     try:
         plan = ExecutionPlan(
@@ -179,9 +234,11 @@ def main(argv=None):
             say(f"warning: --pipeline has no effect for strategy={plan.strategy.value} "
                 "(wavefront needs model/hybrid); microbatches run as grad accumulation")
         if plan.pipelined and not plan.for_config(cfg).pipelined:
-            say(f"warning: --pipeline with --input-feeding on a model axis of {grid.size(plan.model_axis)}: the "
-                "decoder's recurrence runs the head inside it, so the step runs tensor-parallel, in one forward "
-                "and backward")
+            why = ("an LM has no backbone to pipeline" if lm else
+                   "the input-feeding decoder's recurrence runs the head inside it")
+            how = "tensor-parallel" if plan.for_config(cfg).tensor_parallel else "unpipelined"
+            say(f"warning: --pipeline with --arch {args.arch} on a model axis of {grid.size(plan.model_axis)}: {why}, "
+                f"so the step runs {how}, in one forward and backward")
         if args.schedule != "gpipe" and not plan.pipelined:
             say(f"warning: --schedule={args.schedule} has no effect without "
                 "the wavefront pipeline (needs --pipeline and model/hybrid)")

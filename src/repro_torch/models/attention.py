@@ -58,14 +58,53 @@ def init_attention(ini: Initializer, path: str, cfg: ModelConfig) -> dict:
     return p
 
 
-def project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    """x [B,S,d] -> q [B,S,KV,G,D] (or flat), k, v [B,S,KV,D] in x's dtype."""
+def attention_specs(cfg: ModelConfig) -> dict:
+    """The logical spec tree of :func:`init_attention`'s parameters, as
+    ``repro/models/attention.py::init_attention`` returns it beside them:
+    the flat layout shards the q heads (``heads``), the grouped one
+    ``kv_heads`` or else ``q_groups``; k and v are on ``kv_heads``."""
+    if cfg.attn_flat:
+        q, o, bq = ("embed", "heads", None, None), ("heads", None, None, "embed"), ("heads", None, None)
+    else:
+        q, o, bq = ("embed", "kv_heads", "q_groups", None), ("kv_heads", "q_groups", None, "embed"), \
+            ("kv_heads", "q_groups", None)
+    s = {"wq": q, "wk": ("embed", "kv_heads", None), "wv": ("embed", "kv_heads", None), "wo": o}
+    if cfg.qkv_bias:
+        s |= {"bq": bq, "bk": ("kv_heads", None), "bv": ("kv_heads", None)}
+    if cfg.qk_norm:
+        s |= {"q_norm": ("state",), "k_norm": ("state",)}
+    return s
+
+
+def kv_block(p: dict, cfg: ModelConfig, m: int) -> Optional[slice]:
+    """On a tensor-parallel rank (coordinate ``m`` of ``model``) whose flat
+    ``wq`` holds a block of the q heads while ``wk``/``wv`` are whole (the
+    kv heads do not split over the axis, as the MoE model's 4 at 8 ranks):
+    the kv heads that block reads, which :func:`project_qkv` then projects
+    alone.  None when the rank's k and v heads are the ones its q heads read
+    already (no tensor parallelism; kv heads sharded; the grouped layout)."""
+    Hl = p["wq"].shape[1]
+    if not cfg.attn_flat or Hl == cfg.num_heads or p["wk"].shape[1] != cfg.num_kv_heads:
+        return None
+    G = cfg.num_heads // cfg.num_kv_heads
+    if G % Hl:
+        raise NotImplementedError(f"{Hl} q heads a rank over {cfg.num_kv_heads} whole kv heads of {G} q heads each: "
+                                  "a rank's q heads must read one kv head")
+    lo = m * Hl // G
+    return slice(lo, lo + 1)
+
+
+def project_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv: Optional[slice] = None):
+    """x [B,S,d] -> q [B,S,KV,G,D] (or flat), k, v [B,S,KV,D] in x's dtype;
+    ``kv``: only those kv heads (:func:`kv_block`)."""
     dt = x.dtype
+    wk, wv = (p["wk"], p["wv"]) if kv is None else (p["wk"][:, kv], p["wv"][:, kv])
     q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"].to(dt))
-    k = torch.einsum("btd,dkh->btkh", x, p["wk"].to(dt))
-    v = torch.einsum("btd,dkh->btkh", x, p["wv"].to(dt))
+    k = torch.einsum("btd,dkh->btkh", x, wk.to(dt))
+    v = torch.einsum("btd,dkh->btkh", x, wv.to(dt))
     if "bq" in p:
-        q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
+        bk, bv = (p["bk"], p["bv"]) if kv is None else (p["bk"][kv], p["bv"][kv])
+        q, k, v = q + p["bq"].to(dt), k + bk.to(dt), v + bv.to(dt)
     if "q_norm" in p:
         q = common.rms_norm(q, p["q_norm"])
         k = common.rms_norm(k, p["k_norm"])

@@ -129,6 +129,12 @@ def init_norm(ini: Initializer, path: str, d: int, kind: str) -> dict:
     return {"scale": ini.ones(path + ".scale", (d,)), "bias": ini.zeros(path + ".bias", (d,))}
 
 
+def norm_specs(kind: str) -> dict:
+    """The logical spec tree of :func:`init_norm`'s parameters (as
+    ``repro/models/common.py::init_norm`` returns it beside them)."""
+    return {"scale": ("embed",)} if kind == "rmsnorm" else {"scale": ("embed",), "bias": ("embed",)}
+
+
 def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "rmsnorm":
         return rms_norm(x, p["scale"])
@@ -189,6 +195,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float, partial: 
 
 def init_embedding(ini: Initializer, path: str, vocab: int, d: int) -> dict:
     return {"table": ini.embedding(path, (vocab, d))}
+
+
+EMBEDDING_SPECS = {"table": ("vocab", "embed")}  # :func:`init_embedding`'s, as the JAX package's
 
 
 def embed(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Training step factory and a small host loop (the port of
 ``repro/train/trainer.py``).
 
-The seq2seq family trains on every plan; the dense and MoE LM families
-(``models/transformer.py::forward_train``: the CE plus the MoE load-balance
-term, remat per layer group) on a plan with no grid (``core/plan.py::
-check_lm_plan``).
+The seq2seq family trains on every plan, and so do the dense and MoE LM
+families (``models/transformer.py::forward_train``: the CE plus the MoE
+load-balance term, remat per layer group): DATA, and the tensor-parallel
+MODEL, HYBRID and HYBRID_OPT with the expert-parallel MoE
+(``core/plan.py::check_lm_plan`` refuses the grids their blocks do not
+split over).
 
 :func:`make_train_step` builds the step for a model config and an
 :class:`~repro_torch.core.plan.ExecutionPlan`: forward and backward over the
@@ -42,8 +44,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import strategy as stg
-from repro_torch.core.plan import ExecutionPlan
-from repro_torch.core.plan import check_lm_plan
+from repro_torch.core.plan import ExecutionPlan, check_lm_plan
 from repro_torch.models import seq2seq as s2s
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import resolve_device, tree_leaves, tree_map
@@ -166,22 +167,19 @@ def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
     with ``stage_kernel`` as the attention and expert-FFN path and each
     layer group recomputed in the backward (remat, as the JAX trainer's
     default); extras {"denom", "aux"} (the MoE load-balance loss summed over
-    the layers, 0 for a dense model).  No grid (:func:`check_lm_plan`); the
-    generator is unused."""
+    the layers, 0 for a dense model).  On a grid each rank computes on its
+    rows, on the tensor-parallel layouts on its blocks
+    (``ExecutionPlan.sharding``), the MoE expert-parallel on every strategy
+    but DATA (``repro/train/trainer.py:118-146``), through the plan's LM
+    phase boundary (``strategy.lm_phase_boundary``), and returns its share
+    of the loss.  The generator is unused."""
     resolved = plan.resolve_compute_dtype(cfg)
     if resolved != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=resolved)
-    if cfg.family != "seq2seq":
-        check_lm_plan(plan, cfg)
-        ctx = tfm.RunCtx(mode="train", kernel=plan.stage_kernel)
-
-        def lm_loss_fn(params, batch, generator):
-            del generator
-            loss, extras = tfm.forward_train(params, cfg, batch["tokens"], batch["labels"], batch["mask"], ctx=ctx)
-            return loss, {"denom": extras["denom"], "aux": extras["aux"]}
-
-        return lm_loss_fn
     plan = plan.for_config(cfg)
+    if cfg.family != "seq2seq":
+        return _lm_loss_fn(cfg, plan)
+
     sharding = plan.sharding(cfg)
     # under input feeding only a tensor-parallel plan's backbone runs (the encoder's), as the JAX trainer drops it
     backbone = plan.backbone(cfg) if plan.tensor_parallel or not cfg.input_feeding else None
@@ -213,6 +211,25 @@ def make_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
         return loss, {"denom": extras["denom"]}
 
     return loss_fn
+
+
+def _lm_loss_fn(cfg: ModelConfig, plan: ExecutionPlan):
+    check_lm_plan(plan, cfg)
+    S = stg.Strategy
+    grid = plan.mesh if plan.mesh is not None and plan.strategy != S.SINGLE else None
+    ep = cfg.moe is not None and grid is not None and plan.strategy != S.DATA
+    ctx = tfm.RunCtx(mode="train", kernel=plan.stage_kernel, grid=grid, sharding=plan.sharding(cfg),
+                     ep_axis=plan.model_axis if ep else None, loss_axis=plan.loss_axis() if grid is not None else None)
+    pb = stg.lm_phase_boundary(plan.strategy, grid, plan.tensor_parallel) if grid is not None else None
+
+    def lm_loss_fn(params, batch, generator):
+        del generator
+        batch = plan.shard_batch(batch)
+        loss, extras = tfm.forward_train(params, cfg, batch["tokens"], batch["labels"], batch["mask"], ctx=ctx,
+                                         phase_boundary=pb)
+        return loss, {"denom": extras["denom"], "aux": extras["aux"]}
+
+    return lm_loss_fn
 
 
 def _value_and_grad(loss_fn, params, batch, generator, scale=None):

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import types
 
 import numpy as np
 import pytest
@@ -53,6 +52,7 @@ from repro_torch.core.plan import ExecutionPlan, LeafRole, _placed_leaves  # noq
 from repro_torch.data import LMBatchIterator, SyntheticLMTask  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as moe_ops  # noqa: E402
+from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
@@ -442,15 +442,12 @@ def test_lm_plan_without_a_grid_places_nothing():
     assert all(a is b for a, b in zip(tree_leaves(plan.shard_params(params, cfg)), tree_leaves(params)))
 
 
-_FAKE_GRID = types.SimpleNamespace(axis_names=("data", "model"), world=2, size=lambda axis: 2 if axis == "data" else 1)
-
-
 def _refusal(case: str):
     _, _, cfg, _ = _model("qwen3-1.7b")
     if case == "grid_plan":
-        return ExecutionPlan(strategy="data", mesh=_FAKE_GRID).placement(cfg)
+        return ExecutionPlan(strategy="data", mesh=launch_mesh.make_production_mesh()).placement(cfg)
     if case == "grid_loss_fn":
-        return make_loss_fn(cfg, ExecutionPlan(strategy="data", mesh=_FAKE_GRID))
+        return make_loss_fn(cfg, ExecutionPlan(strategy="hybrid", mesh=launch_mesh.make_production_mesh(multi_pod=True)))
     if case == "non_attention_block":
         return tfm.block_pattern(dataclasses.replace(cfg, attn_every=2))
     if case == "learned_pos_emb":
@@ -458,17 +455,38 @@ def _refusal(case: str):
     raise AssertionError(case)
 
 
-@pytest.mark.parametrize("case,item", [("grid_plan", "4\\(d\\)"), ("grid_loss_fn", "4\\(d\\)"),
+# the grid cases keep the ids they have always had (an LM on a test grid trains now; the production mesh refuses)
+@pytest.mark.parametrize("case,item", [pytest.param("grid_plan", "4\\(f\\)", id="grid_plan-4\\(d\\)"),
+                                       pytest.param("grid_loss_fn", "4\\(f\\)", id="grid_loss_fn-4\\(d\\)"),
                                        ("non_attention_block", "6\\(c\\)"), ("learned_pos_emb", "6\\(d\\)")])
 def test_unported_lm_paths_raise_naming_their_roadmap_item(case, item):
+    """An LM trains on the test grids (``tests/test_torch_lm_grid.py``); the
+    TPU pod meshes, the non-attention blocks and learned position embeddings
+    still raise, each naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         _refusal(case)
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "test"], ["--pipeline"]], ids=["mesh", "pipeline"])
-def test_launcher_refuses_an_lm_on_a_grid(flags):
-    with pytest.raises(SystemExit, match=r"ROADMAP queue 1 item 4\(d\)"):
-        launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", *flags])
+def test_launcher_refuses_an_lm_on_a_grid(flags, capsys):
+    """What the launcher still refuses or warns of for an LM: ``--mesh pod``
+    (the TPU mesh, ROADMAP queue 1 item 4(f)) and a test grid too small for
+    the 48-layer MoE's training state (the per-rank reckoning names the
+    smallest that fits); ``--pipeline`` warns and runs the step unpipelined
+    (the JAX LM loss has no backbone to pipeline)."""
+    if flags[0] == "--mesh":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 4\(f\)"):
+            launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--mesh", "pod"])
+        with pytest.raises(SystemExit, match=r"= 489 GB, 244\.4 GB on a rank of the 1x2 grid under --strategy model.*"
+                                             r"--grid 1x8"):
+            launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu", "--strategy", "model", *flags,
+                               "--grid", "1x2"])
+    else:
+        launch_train.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu", "--strategy", "hybrid", *flags,
+                           "--steps", "2", "--batch", "4", "--seq", "16", "--compute-dtype", "float32"])
+        lines = capsys.readouterr().out.splitlines()
+        assert lines[0].startswith("warning: --pipeline with --arch qwen3-1.7b") and "unpipelined" in lines[0]
+        assert "pipeline=True" in lines[1] and len([ln for ln in lines if ln.startswith("step")]) == 2
     # the full MoE model's training state exceeds one card: exit before any allocation
     with pytest.raises(SystemExit, match=r"30,532,122,624 parameters x 16 B .* = 489 GB.*--num-layers"):
         launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu"])

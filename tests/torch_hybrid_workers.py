@@ -60,9 +60,9 @@ def _generator(seed: int) -> torch.Generator:
 
 
 class CountingGrid:
-    """A process grid that records every all-gather and reduce-scatter made
-    through it, as (op, axis, dim, shape of the block sent); everything else
-    is the grid's own."""
+    """A process grid that records every all-gather, reduce-scatter and
+    all-to-all made through it, as (op, axis, dim, shape of the block sent;
+    an all-to-all's dim is 0); everything else is the grid's own."""
 
     def __init__(self, grid):
         self._grid = grid
@@ -78,6 +78,10 @@ class CountingGrid:
     def reduce_scatter(self, t, axis, dim=0):
         self.calls.append(("reduce_scatter", axis, dim, tuple(t.shape)))
         return self._grid.reduce_scatter(t, axis, dim)
+
+    def all_to_all(self, t, axis):
+        self.calls.append(("all_to_all", axis, 0, tuple(t.shape)))
+        return self._grid.all_to_all(t, axis)
 
 
 def run_cases(grid, cases: dict, params_np: dict, batch_np: dict, seed: int, config: str = "small") -> dict:
